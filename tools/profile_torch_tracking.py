@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Where a frame's time goes in the PyTorch/CUDA port (one NVIDIA GPU).
+
+    python3 tools/profile_torch_tracking.py [--frames 30] [--out DIR]
+
+Drives `System.track_stereo` at the headline stereo configuration on the
+rendered room tour (the scene of chip_smoke.py) and reports, for the steady
+frames after the warm-up:
+
+- per-stage milliseconds (host clock around a synchronized device) for the
+  frontend and the parts of the fused tracking step, by wrapping the stage
+  functions — synchronizing at every stage boundary slows the frame a little,
+  so the per-frame total is also measured without the wrappers;
+- a `torch.profiler` window: kernels launched per frame, device-busy share of
+  the wall time, and the top operators by device and by host time.
+
+Prints one JSON object (also written to <out>/profile_torch_tracking.json)
+with the card's name and power limit beside the numbers.
+"""
+import argparse
+import collections
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (scene, configuration and renderer loader)
+from gf_orb_slam2_tpu_torch.features import extractor as extractor_mod  # noqa: E402
+from gf_orb_slam2_tpu_torch.matching import matcher, stereo  # noqa: E402
+from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
+from gf_orb_slam2_tpu_torch.optim import pose_opt  # noqa: E402
+from gf_orb_slam2_tpu_torch.selection import good_feature, observability  # noqa: E402
+from gf_orb_slam2_tpu_torch.system import System  # noqa: E402
+
+STAGES = (
+    (extractor_mod.ORBExtractor, "extract_batch", "frontend.extract"),
+    (stereo, "match_stereo", "frontend.stereo_match"),
+    (matcher, "search_by_projection", "track.search_by_projection"),
+    (pose_opt, "pose_optimization", "track.pose_optimization"),
+    (observability, "info_matrices", "track.info_matrices"),
+    (good_feature, "lazier_greedy_select", "track.lazier_greedy_select"),
+)
+
+
+def render(n):
+    world = chip_smoke.RoomWorld(width=9.0, height=5.5, length=13.0)
+    out = []
+    for R_cw, t_cw in chip_smoke.trajectory_tour(chip_smoke.TOUR_FRAMES)[:n]:
+        left, right = world.render_stereo(
+            R_cw, t_cw, baseline=chip_smoke.BASELINE_M, fx=chip_smoke.FX,
+            fy=chip_smoke.FY, cx=chip_smoke.CX, cy=chip_smoke.CY)
+        out.append((np.clip(left, 0, 255).astype(np.uint8),
+                    np.clip(right, 0, 255).astype(np.uint8)))
+    return out
+
+
+def track(slam, imgs, start, stop):
+    ms = []
+    for i in range(start, stop):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam.track_stereo(imgs[i][0], imgs[i][1], i / 20.0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    n = max(args.frames, 24)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    hamming_cuda.load()
+    imgs = render(n)
+    slam = System(chip_smoke.headline_config())
+    third = (n - 8) // 3
+    a, b, c = 8, 8 + third, 8 + 2 * third
+    track(slam, imgs, 0, a)  # init + warm-up
+    plain_ms = track(slam, imgs, a, b)
+
+    # ---- stage timers
+    totals = collections.defaultdict(list)
+    originals = []
+    for owner, name, label in STAGES:
+        fn = getattr(owner, name)
+        originals.append((owner, name, fn))
+
+        def timed(*aa, _fn=fn, _label=label, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*aa, **kw)
+            torch.cuda.synchronize()
+            totals[_label].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(owner, name, timed)
+    staged_ms = track(slam, imgs, b, c)
+    for owner, name, fn in originals:
+        setattr(owner, name, fn)
+    n_staged = c - b
+    stages = {k: {"calls_per_frame": len(v) / n_staged,
+                  "ms_per_frame": sum(v) / n_staged,
+                  "ms_per_call_median": statistics.median(v)}
+              for k, v in sorted(totals.items())}
+
+    # ---- profiler window
+    from torch.profiler import ProfilerActivity, profile
+
+    hamming_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        track(slam, imgs, c, n)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n_prof = n - c
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in ka if getattr(e, "device_type", None) is not None
+               and "cuda" in str(e.device_type).lower()]
+    device_ms = sum(dev_us(e) for e in ka) / 1e3
+    n_kernels = sum(e.count for e in kernels)
+    top_dev = sorted(ka, key=dev_us, reverse=True)[:12]
+    top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    out = {
+        "card": smi, "torch": torch.__version__, "frames": n,
+        "frame_ms_median_plain": statistics.median(plain_ms),
+        "frame_ms_median_with_stage_syncs": statistics.median(staged_ms),
+        "stages": stages,
+        "profiler": {
+            "frames": n_prof, "wall_ms_per_frame": wall_ms / n_prof,
+            "device_busy_ms_per_frame": device_ms / n_prof,
+            "device_busy_share": device_ms / wall_ms,
+            "device_kernels_per_frame": n_kernels / n_prof,
+            "hamming_launches_per_frame":
+                hamming_cuda.launch_counts["hamming_distance_matrix"] / n_prof,
+            "top_by_device_time": [
+                {"name": e.key[:60], "calls_per_frame": e.count / n_prof,
+                 "device_ms_per_frame": dev_us(e) / 1e3 / n_prof} for e in top_dev],
+            "top_by_host_time": [
+                {"name": e.key[:60], "calls_per_frame": e.count / n_prof,
+                 "host_ms_per_frame": e.self_cpu_time_total / 1e3 / n_prof} for e in top_cpu],
+        },
+    }
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "profile_torch_tracking.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()
