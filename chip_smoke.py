@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from gf_orb_slam2_tpu_torch/csrc, holds
-it against its plain PyTorch version on the card, then drives the port's main
-path — synchronous stereo tracking through `System.track_stereo` at the
-headline configuration (640x480, 800 ORB features, 4096-point local pool,
-good-feature selection on) — over 60 rendered frames and checks the
-trajectory against the renderer's ground truth. Each phase prints one JSON
-line; any failed phase ends the run with a non-zero exit code. The last line
-is {"ok": true, "device": {...}} and is printed only if every phase passed.
+Builds the hand-written CUDA kernels from gf_orb_slam2_tpu_torch/csrc (the
+Hamming distance matrix on the tensor cores, and the masked best-2 search
+that never writes the matrix), holds each against its plain PyTorch version
+on the card, then drives the port's main path — synchronous stereo tracking
+through `System.track_stereo` at the headline configuration (640x480, 800 ORB
+features, 4096-point local pool, good-feature selection on) — over 60
+rendered frames, checks the trajectory against the renderer's ground truth
+and that both kernels were launched by it, and times the best-2 kernel on
+the masks of the run's last frame. Each phase prints one JSON line; any
+failed phase ends the run with a non-zero exit code. The last line is
+{"ok": true, "device": {...}} and is printed only if every phase passed.
 
 Needs a CUDA device and `nvcc`; imports torch and numpy (and OpenCV through
 the renderer), never JAX.
@@ -34,6 +37,7 @@ from gf_orb_slam2_tpu_torch.config import (  # noqa: E402
     LoopClosingConfig, ORBConfig, Sensor, SystemConfig, TrackingConfig,
 )
 from gf_orb_slam2_tpu_torch.io.evaluation import ate_rmse  # noqa: E402
+from gf_orb_slam2_tpu_torch.matching import hamming as hamming_mod  # noqa: E402
 from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
 from gf_orb_slam2_tpu_torch.system import System  # noqa: E402
 
@@ -60,13 +64,19 @@ N_FRAMES = 60
 TOUR_FRAMES = 300
 ATE_BOUND_M = 0.15
 
-# published peaks of one H100 SXM (NVIDIA data sheet) used for the bound
+# published peaks of one H100 SXM (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
-FP32_CORE_OPS_PER_S = 67e12  # non-tensor float32 rate, taken for the integer ALU work
+INT8_TENSOR_OPS_PER_S = 1979e12  # the data sheet lists no 1-bit rate; int8 is the nearest
+POPC_PER_CLOCK_PER_SM = 16       # NVIDIA's CUDA C++ programming manual, arithmetic throughput, cc 9.0
 
-KERNEL_NAME = "hamming_distance_matrix"
+MATRIX, BEST2 = "hamming_distance_matrix", "hamming_masked_best2"
+SOURCES = {MATRIX: "gf_orb_slam2_tpu_torch/csrc/hamming.cu",
+           BEST2: "gf_orb_slam2_tpu_torch/csrc/hamming_best2.cu"}
+REPLACES = "gf_orb_slam2_tpu/ops/pallas_hamming.py:23"
 PATH_SHAPES = ((4096, 1024), (1024, 1024))  # (local + leftover search), (stereo + motion search)
 CHECK_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777), (1, 1), (0, 5))
+BEST2_CHECK_SHAPES = CHECK_SHAPES + ((5, 1), (5, 0))
+MASK_DENSITIES = (0.02, 0.4, 1.0)
 
 
 def emit(obj):
@@ -127,12 +137,54 @@ def time_cuda_graph(fn, samples, inner):
     return statistics.median(out)
 
 
-def hamming_bound_ms(n, m):
+def popc_per_s():
+    """Peak rate of the population-count pipe of this card: 16 results per
+    clock per SM at the highest SM clock `nvidia-smi` reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def matrix_bound_ms(n, m):
     """Least time for the [n,8]x[m,8] → [n,m] int32 matrix: inputs read once,
-    output written once, against 8 XOR + 8 POPC + 7 ADD per output."""
+    output written once, against two 1-bit AND+POPC products of depth 256 per
+    output on the tensor cores. Also returns what a kernel that counts bits
+    with 8 POPC per output could reach at best (`popc_pipe_ms`)."""
     bytes_ms = ((n + m) * 32 + n * m * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (n * m * 23) / FP32_CORE_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+    ops_ms = (n * m * 2 * 2 * 256) / INT8_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "tensor_ops_ms": ops_ms,
+            "popc_pipe_ms": n * m * 8 / popc_per_s() * 1e3}
+
+
+def best2_bound_ms(n, m, n_set):
+    """Least time for the masked best-2 search: descriptors and the mask's
+    n*m bytes read once, 16 bytes of results per row written, against 8 POPC
+    for each of the `n_set` entries the mask lets through."""
+    bytes_ms = ((n + m) * 32 + n * m + n * 16) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_set * 8 / popc_per_s() * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "popc_pipe_ms": ops_ms}
+
+
+def search_like_mask(gen, n, m, dev):
+    """A mask with the structure of a projection search at 640x480: a disc of
+    7 px x level scale around a random point per row, +-1 octave, 40 % of the
+    rows empty."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    size = torch.tensor([640.0, 480.0], device=dev)
+    uv_r, uv_c = rand(n, 2) * size, rand(m, 2) * size
+    oct_r, oct_c = (rand(n) ** 2 * 8).long(), (rand(m) ** 2 * 8).long()
+    radius = 7.0 * 1.2 ** oct_r.float()
+    near = ((uv_r[:, None] - uv_c[None]) ** 2).sum(-1) <= radius[:, None] ** 2
+    return (near & ((oct_r[:, None] - oct_c[None]).abs() <= 1)
+            & (rand(n) < 0.6)[:, None]).contiguous()
 
 
 # ------------------------------------------------------------------ phases
@@ -152,69 +204,145 @@ def phase_device():
 def phase_build():
     t0 = time.perf_counter()
     hamming_cuda.load(verbose=True)
-    emit({"phase": "build", "source": "gf_orb_slam2_tpu_torch/csrc/hamming.cu",
+    emit({"phase": "build", "sources": sorted(SOURCES.values()),
           "arch": "sm_90a", "seconds": round(time.perf_counter() - t0, 2)})
+
+
+class Tally:
+    """Mismatches of a kernel against its plain version (tolerance 0)."""
+
+    def __init__(self):
+        self.mismatches = 0
+        self.max_abs_err = 0
+        self.cases = 0
+
+    def hold(self, got, want, what):
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{what}: kernel gave {tuple(g.shape)} {g.dtype}, "
+                     f"plain version {tuple(w.shape)} {w.dtype}")
+            if g.numel():
+                diff = (g - w).abs()
+                self.mismatches += int((diff != 0).sum())
+                self.max_abs_err = max(self.max_abs_err, int(diff.max()))
+        self.cases += 1
+
+
+def check_matrix(gen, dev):
+    tally = Tally()
+    for n, m in CHECK_SHAPES:
+        da, db = random_desc(gen, n, dev), random_desc(gen, m, dev)
+        got = hamming_cuda.hamming_distance_matrix(da, db)
+        tally.hold([got], [hamming_cuda.hamming_distance_matrix_ref(da, db)], f"matrix {(n, m)}")
+    # all-zeros against all-ones: 0 on equal rows, 256 across
+    zo = torch.cat([torch.zeros((3, 8), dtype=torch.int32, device=dev),
+                    torch.full((2, 8), -1, dtype=torch.int32, device=dev)])
+    want = torch.zeros((5, 5), dtype=torch.int32, device=dev)
+    want[:3, 3:] = 256
+    want[3:, :3] = 256
+    tally.hold([hamming_cuda.hamming_distance_matrix(zo, zo)], [want], "matrix 0/256")
+    return tally, zo
+
+
+def check_best2(gen, dev, zo):
+    tally = Tally()
+
+    def hold(da, db, mask, what):
+        tally.hold(hamming_cuda.hamming_masked_best2(da, db, mask),
+                   hamming_cuda.hamming_masked_best2_ref(da, db, mask), what)
+
+    for n, m in BEST2_CHECK_SHAPES:
+        da, db = random_desc(gen, n, dev), random_desc(gen, m, dev)
+        for density in MASK_DENSITIES:
+            mask = torch.rand((n, m), generator=gen, device=dev) < density
+            hold(da, db, mask, f"best2 {(n, m)} at {density}")
+            mask[::3] = False  # every third row fully masked
+            hold(da, db, mask, f"best2 {(n, m)} at {density}, rows masked")
+    # duplicate descriptors: distances from a tiny set, so ties and second == best occur
+    pool = random_desc(gen, 6, dev)
+    for m in (208, 200):  # 16-byte and bytewise mask reads
+        da = pool[torch.randint(0, 6, (300,), generator=gen, device=dev)]
+        db = pool[torch.randint(0, 4, (m,), generator=gen, device=dev)]
+        for density in (0.4, 1.0):
+            mask = torch.rand((300, m), generator=gen, device=dev) < density
+            got = hamming_cuda.hamming_masked_best2(da, db, mask)
+            if not bool((got[1] == got[2]).any()):
+                fail("the duplicate-descriptor case produced no second == best")
+            hold(da, db, mask, f"best2 duplicates {(300, m)} at {density}")
+    # an unmasked distance of 256 ties with the masked-out entries
+    hold(zo, zo, torch.ones((5, 5), dtype=torch.bool, device=dev), "best2 0/256")
+    hold(zo, zo, torch.eye(5, dtype=torch.bool, device=dev).flip(0), "best2 0/256 antidiagonal")
+    return tally
+
+
+def time_best2(da, db, mask):
+    """Times of the best-2 kernel on one input, beside its plain version, the
+    pair it replaces on the path (matrix kernel + `masked_best2`: the
+    yardstick `library_ms` on the device, `library_call_ms` called eagerly)
+    and its bound for this mask."""
+    n, m = mask.shape
+    n_set = int(mask.sum())
+
+    def pair():
+        return hamming_cuda.masked_best2(hamming_cuda.hamming_distance_matrix(da, db), mask)
+
+    rec = {"n": n, "m": m, "mask_density": n_set / max(n * m, 1),
+           "ms": time_cuda_graph(lambda: hamming_cuda.hamming_masked_best2(da, db, mask), 30, 20),
+           "call_ms": time_cuda(lambda: hamming_cuda.hamming_masked_best2(da, db, mask), 30, 20),
+           "plain_ms": time_cuda(lambda: hamming_cuda.hamming_masked_best2_ref(da, db, mask), 5, 2),
+           "library_ms": time_cuda_graph(pair, 10, 5), "library_call_ms": time_cuda(pair, 10, 5)}
+    rec.update(best2_bound_ms(n, m, n_set))
+    return rec
+
+
+def kernel_record(name, tally, shapes, library_ms):
+    head = shapes[0]  # the larger path shape
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES,
+        "ok": tally.mismatches == 0, "mismatches": tally.mismatches,
+        "max_abs_err": tally.max_abs_err, "cases": tally.cases, "tolerance": 0,
+        "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": library_ms, "shapes": shapes,
+    }
 
 
 def phase_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20240)
-    mismatches = 0
-    max_abs_err = 0
-    for n, m in CHECK_SHAPES:
-        da, db = random_desc(gen, n, dev), random_desc(gen, m, dev)
-        got = hamming_cuda.hamming_distance_matrix(da, db)
-        ref = hamming_cuda.hamming_distance_matrix_ref(da, db)
-        torch.cuda.synchronize()
-        if got.shape != (n, m) or got.dtype != torch.int32:
-            fail(f"kernel output {tuple(got.shape)} {got.dtype} at {(n, m)}")
-        if got.numel():
-            diff = (got - ref).abs()
-            mismatches += int((diff != 0).sum())
-            max_abs_err = max(max_abs_err, int(diff.max()))
-    # all-zeros against all-ones: 0 on equal rows, 256 across
-    z = torch.zeros((3, 8), dtype=torch.int32, device=dev)
-    o = torch.full((2, 8), -1, dtype=torch.int32, device=dev)
-    ext = hamming_cuda.hamming_distance_matrix(torch.cat([z, o]), torch.cat([z, o]))
-    want = torch.zeros((5, 5), dtype=torch.int32, device=dev)
-    want[:3, 3:] = 256
-    want[3:, :3] = 256
-    mismatches += int((ext != want).sum())
-    max_abs_err = max(max_abs_err, int((ext - want).abs().max()))
+    matrix_tally, zo = check_matrix(gen, dev)
+    best2_tally = check_best2(gen, dev, zo)
+    torch.cuda.synchronize()
 
-    shapes = []
+    empty_ms = time_cuda_graph(hamming_cuda.launch_empty_kernel, 30, 20)
+    matrix_shapes, best2_shapes = [], []
     for n, m in PATH_SHAPES:
         da, db = random_desc(gen, n, dev), random_desc(gen, m, dev)
+
         def kernel():
             return hamming_cuda.hamming_distance_matrix(da, db)
 
-        ms = time_cuda_graph(kernel, 30, 20)   # the kernel on the device
-        call_ms = time_cuda(kernel, 30, 20)    # eager calls: host launch path included
-        plain_ms = time_cuda(lambda: hamming_cuda.hamming_distance_matrix_ref(da, db), 5, 2)
-        bound_ms, bound_by = hamming_bound_ms(n, m)
-        shapes.append({"n": n, "m": m, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by})
-    ok = mismatches == 0
-    rec = {
-        "name": KERNEL_NAME, "route": "cuda",
-        "source": "gf_orb_slam2_tpu_torch/csrc/hamming.cu",
-        "replaces": "gf_orb_slam2_tpu/ops/pallas_hamming.py:23",
-        "ok": ok, "mismatches": mismatches, "max_abs_err": max_abs_err,
-        "tolerance": 0,
-        # headline numbers at the larger path shape (two launches per frame)
-        "ms": shapes[0]["ms"], "call_ms": shapes[0]["call_ms"],
-        "plain_ms": shapes[0]["plain_ms"],
-        "bound_ms": shapes[0]["bound_ms"], "bound_by": shapes[0]["bound_by"],
-        "library_ms": None,  # PyTorch has no popcount operator
-        "us_4096x1024": shapes[0]["ms"] * 1e3,
-        "us_1024x1024": shapes[1]["ms"] * 1e3,
-        "shapes": shapes,
-    }
-    emit({"phase": "kernels", "checked": [rec]})
-    if not ok:
-        fail(f"CUDA kernel disagrees with its plain version: {mismatches} mismatches")
-    return rec
+        rec = {"n": n, "m": m,
+               "ms": time_cuda_graph(kernel, 30, 20),   # the kernel on the device
+               "call_ms": time_cuda(kernel, 30, 20),    # eager calls: host launch path included
+               "plain_ms": time_cuda(lambda: hamming_cuda.hamming_distance_matrix_ref(da, db), 5, 2)}
+        rec.update(matrix_bound_ms(n, m))
+        matrix_shapes.append(rec)
+        for label, mask in (("search_like", search_like_mask(gen, n, m, dev)),
+                            ("all_true", torch.ones((n, m), dtype=torch.bool, device=dev))):
+            best2_shapes.append(dict(time_best2(da, db, mask), mask=label))
+    # PyTorch has no popcount operator, so no library call computes the matrix
+    records = {MATRIX: kernel_record(MATRIX, matrix_tally, matrix_shapes, None),
+               BEST2: kernel_record(BEST2, best2_tally, best2_shapes,
+                                    best2_shapes[0]["library_ms"])}
+    emit({"phase": "kernels", "empty_kernel_replay_ms": empty_ms,
+          "popc_per_s": popc_per_s(), "checked": list(records.values())})
+    for rec in records.values():
+        if not rec["ok"]:
+            fail(f"{rec['name']} disagrees with its plain version: "
+                 f"{rec['mismatches']} mismatches")
+    return records
 
 
 def headline_config():
@@ -248,16 +376,28 @@ def phase_main_path():
     render_s = time.perf_counter() - t0
 
     slam = System(headline_config())  # default device: cuda
+    # the best-2 inputs of the last frame are copied on their way to the
+    # kernel, to time it afterwards on the masks the path really gives it
+    captured = []
+    best2 = hamming_mod.distance_best2
+
+    def capture(da, db, mask):
+        captured.append((da.clone(), db.clone(), mask.clone()))
+        return best2(da, db, mask)
+
     hamming_cuda.reset_launch_counts()
     est, frame_ms = [], []
     for i, (left, right) in enumerate(imgs):
+        if i == N_FRAMES - 1:
+            hamming_mod.distance_best2 = capture
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         T = slam.track_stereo(left, right, i / 20.0)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         est.append(-T[:3, :3].T @ T[:3, 3])
-    launches = hamming_cuda.launch_counts[KERNEL_NAME]
+    launches = dict(hamming_cuda.launch_counts)
+    hamming_mod.distance_best2 = best2
 
     stats = slam.tracker.stats
     states = [s.state for s in stats]
@@ -303,22 +443,50 @@ def phase_main_path():
         fail(f"fused path served {n_fused} frames (< 40)")
     if n_kf < 2:
         fail(f"{n_kf} keyframes (< 2)")
-    if launches == 0 or launches < 4 * n_fused:
-        fail(f"{launches} kernel launches for {n_fused} fused frames (< 4 per frame)")
+    if launches[BEST2] < 4 * n_fused:
+        fail(f"{launches[BEST2]} launches of {BEST2} for {n_fused} fused frames (< 4 per frame)")
+    if launches[MATRIX] < 1:
+        fail(f"{MATRIX} was not launched on the main path")
     if not (np.isfinite(est).all() and est.shape == (N_FRAMES, 3)):
         fail("trajectory is not finite")
     if not ate < ATE_BOUND_M:
         fail(f"ATE {ate:.4f} m >= {ATE_BOUND_M} m")
-    return rec
+    return rec, captured
+
+
+def phase_path_masks(captured):
+    """The best-2 kernel timed on the inputs of the last frame's matching
+    calls (stereo, motion search, local search, leftover search)."""
+    if not captured:
+        fail("no best-2 call was captured on the last frame")
+    calls = []
+    for da, db, mask in captured:
+        got = hamming_cuda.hamming_masked_best2(da, db, mask)
+        want = hamming_cuda.hamming_masked_best2_ref(da, db, mask)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"best-2 kernel disagrees with its plain version on a mask of the path "
+                 f"{tuple(mask.shape)}")
+        calls.append(dict(time_best2(da, db, mask), mask="path",
+                          rows_with_candidates=int(mask.any(1).sum())))
+    emit({"phase": "path_masks", "calls": calls})
+    return calls
 
 
 def main():
     smi = phase_device()
     phase_build()
-    kernel = phase_kernels()
-    run = phase_main_path()
-    kernel = dict(kernel, launches=run["kernel_launches"])
-    emit({"kernels": [kernel]})
+    kernels = phase_kernels()
+    run, captured = phase_main_path()
+    path_calls = phase_path_masks(captured)
+    # the best-2 kernel's headline numbers are those on the path's own masks,
+    # largest shape first; the synthetic masks of phase `kernels` follow
+    best2 = kernels[BEST2]
+    shapes = sorted(path_calls, key=lambda c: -c["n"]) + best2["shapes"]
+    head = shapes[0]
+    best2.update({k: head[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}, shapes=shapes)
+    emit({"kernels": [dict(rec, launches=run["kernel_launches"][name])
+                      for name, rec in kernels.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

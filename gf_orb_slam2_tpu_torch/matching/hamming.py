@@ -1,9 +1,11 @@
 """Hamming distance over 256-bit binary descriptors (int32[...,8] words).
 
 Replaces ORBmatcher::DescriptorDistance (reference: src/ORBmatcher.cc:1768)
-with whole-matrix distances: one [N,M] matrix per call. On CUDA tensors the
-matrix comes from the hand-written kernel (ops/hamming_cuda.py), always; on
-CPU tensors from its plain version.
+with whole-matrix distances. Callers that only want the best two matches per
+row use `distance_best2`, which never forms the [N,M] matrix on the card;
+`distance_matrix` + `masked_best2` serve the caller that also reduces down
+the columns. On CUDA tensors both come from the hand-written kernels
+(ops/hamming_cuda.py), always; on CPU tensors from their plain versions.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import torch
 
 from gf_orb_slam2_tpu_torch.ops import hamming_cuda
 
-MAX_DIST = 256
+MAX_DIST = hamming_cuda.MAX_DIST
+masked_best2 = hamming_cuda.masked_best2
 
 
 def distance_matrix(da, db):
@@ -21,33 +24,18 @@ def distance_matrix(da, db):
     return hamming_cuda.hamming_distance_matrix_ref(da, db)
 
 
+def distance_best2(da, db, mask):
+    """`masked_best2(distance_matrix(da, db), mask)` in one step: da [N,8],
+    db [M,8] int32 words, mask [N,M] bool → (best_idx [N] int64, best [N],
+    second [N])."""
+    if da.is_cuda:
+        return hamming_cuda.hamming_masked_best2(da, db, mask)
+    return hamming_cuda.hamming_masked_best2_ref(da, db, mask)
+
+
 def distance_pairs(da, db):
     """Row-wise distances for aligned pairs: [N,8] × [N,8] → [N]."""
     return hamming_cuda.popcount_words(da ^ db)
-
-
-def masked_best2(dist, mask):
-    """Best and second-best per row under mask.
-
-    dist: [N,M] int32; mask: [N,M] bool.
-    Returns (best_idx [N] int64, best [N], second [N]); masked-out rows get
-    best = MAX_DIST and best_idx = 0. Ties go to the lowest column: the
-    argmin is taken over the composite key d·M + column, which is unique per
-    row, so CPU and CUDA agree.
-    """
-    n, m = dist.shape
-    d = torch.where(mask, dist, MAX_DIST)
-    if m == 0:
-        z = torch.zeros(n, dtype=torch.int64, device=dist.device)
-        full = torch.full((n,), MAX_DIST, dtype=dist.dtype, device=dist.device)
-        return z, full, full.clone()
-    cols = torch.arange(m, device=dist.device, dtype=torch.int64)
-    key = (d.to(torch.int64) * m + cols).min(dim=1).values
-    best_idx = key % m
-    best = (key // m).to(dist.dtype)
-    d2 = d.scatter(1, best_idx[:, None], MAX_DIST)
-    second = d2.min(dim=1).values
-    return best_idx, best, second
 
 
 def resolve_duplicates(best_idx, best, accept, n_cols: int):

@@ -3,7 +3,7 @@
 Replacement for ORBmatcher (reference: src/ORBmatcher.cc). The reference
 prunes candidates through a 64x48 per-frame grid (Frame::GetFeaturesInArea,
 src/Frame.cc:593) then loops per point; here the FULL masked [P,N] Hamming
-matrix is evaluated in one shot.
+search is evaluated in one shot.
 
 Covered reference entry points:
 - SearchByProjection (map→frame, ORBmatcher.cc:155) → `search_by_projection`
@@ -63,8 +63,7 @@ def search_by_projection(
     in_window = d2 <= (r[:, None] ** 2)
     oct_ok = torch.abs(kp_octave[None, :] - pred_octave[:, None]) <= octave_window
     mask = in_window & oct_ok & pred_valid[:, None] & kp_valid[None, :]
-    dist = hamming.distance_matrix(point_desc, kp_desc)
-    best_idx, best, second = hamming.masked_best2(dist, mask)
+    best_idx, best, second = hamming.distance_best2(point_desc, kp_desc, mask)
     accept = best <= th
     if nn_ratio is not None:
         accept = accept & _ratio_ok(best, second, nn_ratio)
@@ -97,8 +96,7 @@ def match_window(
     (reference: SearchForInitialization ORBmatcher.cc:520, window=100px)."""
     d2 = torch.sum((uv_a[:, None, :] - uv_b[None, :, :]) ** 2, -1)
     mask = (d2 <= window * window) & valid_a[:, None] & valid_b[None, :]
-    dist = hamming.distance_matrix(desc_a, desc_b)
-    best_idx, best, second = hamming.masked_best2(dist, mask)
+    best_idx, best, second = hamming.distance_best2(desc_a, desc_b, mask)
     accept = (best <= th) & _ratio_ok(best, second, nn_ratio)
     accept = hamming.resolve_duplicates(best_idx, best, accept, desc_b.shape[0])
     return _matches(best_idx, best, accept)

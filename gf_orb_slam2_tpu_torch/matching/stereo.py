@@ -55,8 +55,7 @@ def match_stereo(
     oct_ok = torch.abs(kp_l_oct[:, None] - kp_r_oct[None, :]) <= 1
     mask = row_ok & disp_ok & oct_ok & kp_l_valid[:, None] & kp_r_valid[None, :]
 
-    dist = hamming.distance_matrix(kp_l_desc, kp_r_desc)
-    best_idx, best, _ = hamming.masked_best2(dist, mask)
+    best_idx, best, _ = hamming.distance_best2(kp_l_desc, kp_r_desc, mask)
     accept = best < th_desc
 
     # ---- SAD subpixel refinement around the matched right keypoint column

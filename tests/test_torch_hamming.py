@@ -2,8 +2,9 @@
 
 All comparisons are exact: the outputs are integers. The JAX Pallas kernel
 runs in interpret mode, as in tests/test_pallas_kernels.py; the port runs its
-plain PyTorch version (the CUDA kernel has no CPU mode — it is held against
-the plain version on the card by chip_smoke.py and the `cuda` test below).
+plain PyTorch versions (the CUDA kernels have no CPU mode — they are held
+against the plain versions on the card by chip_smoke.py and the `cuda` tests
+below).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -135,8 +136,128 @@ def test_wrapper_input_checks(bad):
 def test_cpu_path_never_counts_a_launch():
     rng = np.random.default_rng(6)
     hamming_cuda.reset_launch_counts()
-    tham.distance_matrix(_t(_desc(rng, 8)), _t(_desc(rng, 8)))
-    assert hamming_cuda.launch_counts == {"hamming_distance_matrix": 0}
+    a, b = _t(_desc(rng, 8)), _t(_desc(rng, 8))
+    tham.distance_matrix(a, b)
+    tham.distance_best2(a, b, torch.ones((8, 8), dtype=torch.bool))
+    assert hamming_cuda.launch_counts == {"hamming_distance_matrix": 0,
+                                          "hamming_masked_best2": 0}
+
+
+# ---- the fused form: best two matches per row without the matrix
+
+def _jax_best2(a, b, mask, pallas):
+    """The JAX pair the fused form replaces; the matrix from the Pallas kernel
+    in interpret mode (tiled shapes) or from the XLA path (any shape)."""
+    if pallas:
+        dist = distance_matrix_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    else:
+        dist = jham.distance_matrix(jnp.asarray(a), jnp.asarray(b))
+    return [np.asarray(x) for x in jham.masked_best2(dist, jnp.asarray(mask))]
+
+
+def _mask(rng, kind, n, m):
+    if kind == "all_true":
+        return np.ones((n, m), bool)
+    mask = rng.random((n, m)) < {"sparse": 0.02, "dense": 0.4, "rows_masked": 0.4}[kind]
+    if kind == "rows_masked":
+        mask[::3] = False
+    return mask
+
+
+def _assert_best2(got, want):
+    gi, gb, gs = got
+    assert gi.dtype == torch.int64 and gb.dtype == torch.int32 and gs.dtype == torch.int32
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("fn", ["hamming_masked_best2_ref", "distance_best2"])
+@pytest.mark.parametrize("kind", ["sparse", "dense", "all_true", "rows_masked"])
+@pytest.mark.parametrize("n,m,pallas", [(256, 512, True), (100, 70, False)])
+def test_best2_matches_reference_pair(n, m, pallas, kind, fn):
+    rng = np.random.default_rng(100 + n)
+    a, b = _desc(rng, n), _desc(rng, m)
+    mask = _mask(rng, kind, n, m)
+    want = _jax_best2(a, b, mask, pallas)
+    f = getattr(hamming_cuda, fn, None) or getattr(tham, fn)
+    _assert_best2(f(_t(a), _t(b), torch.from_numpy(mask)), want)
+    if kind == "rows_masked":
+        assert (want[1][::3] == tham.MAX_DIST).all() and (want[0][::3] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["dense", "all_true"])
+def test_best2_duplicate_descriptors_tie_to_lowest_column(kind):
+    """Descriptors drawn from a pool of six: equal distances in a row, so the
+    lowest column must win and `second == best` must occur."""
+    rng = np.random.default_rng(8)
+    pool = _desc(rng, 6)
+    a, b = pool[rng.integers(0, 6, 90)], pool[rng.integers(0, 4, 75)]
+    mask = _mask(rng, kind, 90, 75)
+    want = _jax_best2(a, b, mask, pallas=False)
+    assert (want[1] == want[2]).any()
+    _assert_best2(tham.distance_best2(_t(a), _t(b), torch.from_numpy(mask)), want)
+
+
+@pytest.mark.parametrize("n,m", [(7, 1), (5, 0), (0, 5), (1, 1)])
+def test_best2_degenerate_shapes(n, m):
+    rng = np.random.default_rng(9)
+    a, b = _desc(rng, n), _desc(rng, m)
+    mask = np.ones((n, m), bool)
+    gi, gb, gs = tham.distance_best2(_t(a), _t(b), torch.from_numpy(mask))
+    assert gi.shape == gb.shape == gs.shape == (n,)
+    assert gi.dtype == torch.int64 and gb.dtype == torch.int32 and gs.dtype == torch.int32
+    if m == 0:
+        assert (gi == 0).all() and (gb == tham.MAX_DIST).all() and (gs == tham.MAX_DIST).all()
+    elif n:
+        want = _jax_best2(a, b, mask, pallas=False)
+        _assert_best2((gi, gb, gs), want)
+        if m == 1:
+            assert (gs == tham.MAX_DIST).all()
+
+
+def test_best2_unmasked_distance_256_ties_with_masked_entries():
+    z = np.zeros((2, 8), np.uint32)
+    o = np.full((3, 8), 0xFFFFFFFF, np.uint32)
+    d = np.concatenate([z, o])
+    mask = np.eye(5, dtype=bool)[::-1].copy()  # rows 0,1 see only all-ones columns
+    want = _jax_best2(d, d, mask, pallas=False)
+    _assert_best2(tham.distance_best2(_t(d), _t(d), torch.from_numpy(mask)), want)
+    assert want[1][0] == 256 and want[0][0] == 0
+
+
+def test_best2_wrapper_refuses_cpu_tensors():
+    a = _t(_desc(np.random.default_rng(10), 4))
+    before = dict(hamming_cuda.launch_counts)
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming_cuda.hamming_masked_best2(a, a, torch.ones((4, 4), dtype=torch.bool))
+    assert hamming_cuda.launch_counts == before
+
+
+@pytest.mark.parametrize("mask,err", [
+    (torch.ones((4, 5), dtype=torch.bool), ValueError),
+    (torch.ones((4,), dtype=torch.bool), ValueError),
+    (torch.ones((4, 4), dtype=torch.uint8), TypeError),
+    (torch.ones((4, 4), dtype=torch.int32), TypeError),
+])
+def test_best2_mask_checks(mask, err):
+    a = torch.zeros((4, 8), dtype=torch.int32)
+    before = dict(hamming_cuda.launch_counts)
+    with pytest.raises(err, match="mask"):
+        hamming_cuda.hamming_masked_best2(a, a, mask)
+    with pytest.raises(err, match="mask"):
+        hamming_cuda.hamming_masked_best2_ref(a, a, mask)
+    assert hamming_cuda.launch_counts == before
+
+
+def test_best2_refuses_too_many_columns():
+    """The key d*M + column must fit 32 bits: M < 2**22."""
+    m = hamming_cuda.MAX_COLUMNS
+    a = torch.zeros((1, 8), dtype=torch.int32)
+    b = a.expand(m, 8)  # a view: the shape is refused before anything is read
+    before = dict(hamming_cuda.launch_counts)
+    with pytest.raises(ValueError, match="M <"):
+        hamming_cuda.hamming_masked_best2(a, b, torch.ones((1, m), dtype=torch.bool))
+    assert hamming_cuda.launch_counts == before
 
 
 @pytest.mark.cuda
@@ -151,3 +272,19 @@ def test_cuda_kernel_equals_plain_version_on_the_card():
         got = hamming_cuda.hamming_distance_matrix(a, b)
         want = hamming_cuda.hamming_distance_matrix_ref(a, b)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_best2_kernel_equals_plain_version_on_the_card():
+    """Needs an NVIDIA GPU and nvcc; run on the card with
+    `python -m pytest tests/test_torch_hamming.py -m cuda`."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    rng = np.random.default_rng(11)
+    for n, m in [(1024, 1024), (1000, 777), (5, 1), (1, 1)]:
+        a, b = _t(_desc(rng, n)).cuda(), _t(_desc(rng, m)).cuda()
+        for kind in ("sparse", "dense", "all_true", "rows_masked"):
+            mask = torch.from_numpy(_mask(rng, kind, n, m)).cuda()
+            got = hamming_cuda.hamming_masked_best2(a, b, mask)
+            want = hamming_cuda.hamming_masked_best2_ref(a, b, mask)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))

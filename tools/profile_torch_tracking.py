@@ -149,7 +149,7 @@ def main():
             "device_busy_share": device_ms / wall_ms,
             "device_kernels_per_frame": n_kernels / n_prof,
             "hamming_launches_per_frame":
-                hamming_cuda.launch_counts["hamming_distance_matrix"] / n_prof,
+                {k: v / n_prof for k, v in hamming_cuda.launch_counts.items()},
             "top_by_device_time": [
                 {"name": e.key[:60], "calls_per_frame": e.count / n_prof,
                  "device_ms_per_frame": dev_us(e) / 1e3 / n_prof} for e in top_dev],
