@@ -8,12 +8,18 @@ Hamming distance matrix on the tensor cores, and the masked best-2 search
 that never writes the matrix), holds each against its plain PyTorch version
 on the card, then drives the port's main path — synchronous stereo tracking
 through `System.track_stereo` at the headline configuration (640x480, 800 ORB
-features, 4096-point local pool, good-feature selection on) — over 60
-rendered frames, checks the trajectory against the renderer's ground truth
-and that both kernels were launched by it, and times the best-2 kernel on
-the masks of the run's last frame. Each phase prints one JSON line; any
-failed phase ends the run with a non-zero exit code. The last line is
-{"ok": true, "device": {...}} and is printed only if every phase passed.
+features, 4096-point local pool, good-feature selection on) with synchronous
+local mapping on every keyframe event (triangulation, fusion, local BA, KF
+culling) — over 150 rendered frames, checks the trajectory against the
+renderer's ground truth, that every keyframe event went through the mapper
+and that both kernels were launched by the run (the mapper's launches of the
+best-2 kernel counted apart), times the best-2 kernel on the masks of the
+run's last frame and of its last keyframe event's triangulation and fusion
+searches, and solves that event's local BA problem on the card against the
+same problem on the CPU, plainly and through good-graph selection. Each phase
+prints one JSON line; any failed phase ends the run with a non-zero exit
+code. The last line is {"ok": true, "device": {...}} and is printed only if
+every phase passed.
 
 Needs a CUDA device and `nvcc`; imports torch and numpy (and OpenCV through
 the renderer), never JAX.
@@ -37,9 +43,14 @@ from gf_orb_slam2_tpu_torch.config import (  # noqa: E402
     LoopClosingConfig, ORBConfig, Sensor, SystemConfig, TrackingConfig,
 )
 from gf_orb_slam2_tpu_torch.io.evaluation import ate_rmse  # noqa: E402
+from gf_orb_slam2_tpu_torch.mapping import local_mapping  # noqa: E402
 from gf_orb_slam2_tpu_torch.matching import hamming as hamming_mod  # noqa: E402
 from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
+from gf_orb_slam2_tpu_torch.optim.local_ba import (  # noqa: E402
+    LocalBAProblem, local_bundle_adjustment,
+)
 from gf_orb_slam2_tpu_torch.system import System  # noqa: E402
+from gf_orb_slam2_tpu_torch.utils.transfer import to_device  # noqa: E402
 
 
 def _load_renderer():
@@ -58,11 +69,14 @@ RoomWorld, trajectory_tour = _renderer.RoomWorld, _renderer.trajectory_tour
 # scene of the JAX package's headline benchmark (bench.py)
 FX = FY = 450.0
 CX, CY = 320.0, 240.0
+WIDTH, HEIGHT = 640, 480
 BASELINE_M = 0.1
 BF = FX * BASELINE_M
-N_FRAMES = 60
+N_FRAMES = 150
 TOUR_FRAMES = 300
-ATE_BOUND_M = 0.15
+ATE_BOUND_M = 0.05  # the JAX package's synchronous gate with mapping on (tests/test_rendered_ate.py)
+DEVICE = "cuda"
+BA_POSE_TOL, BA_COST_RTOL = 1e-3, 1e-3  # card against CPU, same BA problem
 
 # published peaks of one H100 SXM (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -362,6 +376,71 @@ def headline_config():
     )
 
 
+class Capture:
+    """Copies of the best-2 inputs on their way to the kernel: the tracking
+    calls of the run's last frame, and the triangulation and fusion calls of
+    its last keyframe event (the mapper's stages are wrapped to label them).
+    Also counts the mapper's own kernel launches and keeps the last event's
+    local BA problem."""
+
+    def __init__(self, slam):
+        self.slam = slam
+        self.label = None            # "tracking", "triangulation", "fusion" or None
+        self.calls = []              # (label, da, db, mask) of the last frame / event
+        self.mapper_launches = dict.fromkeys(hamming_cuda.launch_counts, 0)
+        self.ba_problem = None
+        self._best2 = hamming_mod.distance_best2
+        self._tri, self._fuse = local_mapping.triangulate_pairs, local_mapping.fuse_pairs
+        mapper = slam.mapper
+        self._process, self._assemble = mapper.process_keyframe, mapper.ba_assemble
+
+    def __enter__(self):
+        def best2(da, db, mask):
+            if self.label is not None:
+                self.calls.append((self.label, da.clone(), db.clone(), mask.clone()))
+            return self._best2(da, db, mask)
+
+        def labelled(fn, label):
+            def run(*a, **k):
+                self.label = label
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.label = None
+            return run
+
+        def process(kf, *a, **k):
+            self.calls = [c for c in self.calls if c[0] == "tracking"]
+            before = dict(hamming_cuda.launch_counts)
+            try:
+                return self._process(kf, *a, **k)
+            finally:
+                for name, n in hamming_cuda.launch_counts.items():
+                    self.mapper_launches[name] += n - before[name]
+
+        def assemble(kf):
+            out = self._assemble(kf)
+            if out is not None:
+                self.ba_problem = out
+            return out
+
+        hamming_mod.distance_best2 = best2
+        local_mapping.triangulate_pairs = labelled(self._tri, "triangulation")
+        local_mapping.fuse_pairs = labelled(self._fuse, "fusion")
+        self.slam.mapper.process_keyframe = process
+        self.slam.mapper.ba_assemble = assemble
+        return self
+
+    def __exit__(self, *exc):
+        hamming_mod.distance_best2 = self._best2
+        local_mapping.triangulate_pairs, local_mapping.fuse_pairs = self._tri, self._fuse
+        del self.slam.mapper.process_keyframe, self.slam.mapper.ba_assemble
+
+
+def spread(values):
+    return {"median": statistics.median(values), "max": max(values)} if values else None
+
+
 def phase_main_path():
     world = RoomWorld(width=9.0, height=5.5, length=13.0)
     poses = trajectory_tour(TOUR_FRAMES)[:N_FRAMES]
@@ -369,60 +448,67 @@ def phase_main_path():
     t0 = time.perf_counter()
     imgs = []
     for R_cw, t_cw in poses:
-        left, right = world.render_stereo(R_cw, t_cw, baseline=BASELINE_M,
-                                          fx=FX, fy=FY, cx=CX, cy=CY)
+        left, right = world.render_stereo(R_cw, t_cw, baseline=BASELINE_M, fx=FX, fy=FY,
+                                          cx=CX, cy=CY, w=WIDTH, h=HEIGHT)
         imgs.append((np.clip(left, 0, 255).astype(np.uint8),
                      np.clip(right, 0, 255).astype(np.uint8)))
     render_s = time.perf_counter() - t0
 
-    slam = System(headline_config())  # default device: cuda
-    # the best-2 inputs of the last frame are copied on their way to the
-    # kernel, to time it afterwards on the masks the path really gives it
-    captured = []
-    best2 = hamming_mod.distance_best2
-
-    def capture(da, db, mask):
-        captured.append((da.clone(), db.clone(), mask.clone()))
-        return best2(da, db, mask)
-
-    hamming_cuda.reset_launch_counts()
+    slam = System(headline_config(), device=DEVICE)  # the card: no CPU fallback
     est, frame_ms = [], []
-    for i, (left, right) in enumerate(imgs):
-        if i == N_FRAMES - 1:
-            hamming_mod.distance_best2 = capture
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        T = slam.track_stereo(left, right, i / 20.0)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        est.append(-T[:3, :3].T @ T[:3, 3])
-    launches = dict(hamming_cuda.launch_counts)
-    hamming_mod.distance_best2 = best2
+    with Capture(slam) as cap:
+        hamming_cuda.reset_launch_counts()
+        for i, (left, right) in enumerate(imgs):
+            if i == N_FRAMES - 1:  # the last frame's tracking calls
+                cap.label = "tracking"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T = slam.track_stereo(left, right, i / 20.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            cap.label = None
+            est.append(-T[:3, :3].T @ T[:3, 3])
+        launches = dict(hamming_cuda.launch_counts)
 
     stats = slam.tracker.stats
     states = [s.state for s in stats]
     n_fused = sum(s.path == "fused" for s in stats)
-    n_kf = int(slam.store.n_keyframes)
+    n_kf_events = sum(bool(s.created_kf) for s in stats)
+    mstats = slam.mapper.stats
+    ba_costs = [st.ba_cost for st in mstats if st.ba_kfs > 0]
+    event_ms = slam.mapper.event_ms
     est = np.stack(est)
     ate = ate_rmse(est, gt)
     steady = sorted(frame_ms[5:])
+    tracking_best2 = launches[BEST2] - cap.mapper_launches[BEST2]
     rec = {
         "phase": "main_path", "frames": N_FRAMES, "render_s": round(render_s, 1),
         "init_keypoints": stats[0].n_features, "states_ok": states.count("OK"),
-        "fused_frames": n_fused, "keyframes": n_kf,
-        "pending_keyframe_events": len(slam.pending_keyframes),
+        "fused_frames": n_fused, "keyframe_events": n_kf_events,
+        "mapper_events": len(mstats), "keyframes_valid": int(slam.store.kf_valid.sum()),
         "map_points": int(slam.store.n_points),
+        "points_triangulated": sum(st.n_new_points for st in mstats),
+        "points_fused": sum(st.n_fused for st in mstats),
+        "points_culled": sum(st.n_culled_points for st in mstats),
+        "keyframes_culled": sum(st.n_culled_kfs for st in mstats),
+        "ba_runs": len(ba_costs), "ba_cost_last": ba_costs[-1] if ba_costs else None,
+        "ba_window_kfs_max": max((st.ba_kfs for st in mstats), default=0),
         "ate_rmse_m": ate, "ate_bound_m": ATE_BOUND_M,
         "frame_ms_median": statistics.median(steady),
         "frame_ms_p90": steady[int(0.9 * (len(steady) - 1))],
         "frame_ms_first": frame_ms[0],
+        "mapper_ms_per_event": {
+            stage: spread([e[stage] for e in event_ms[1:]])
+            for stage in ("refresh", "triangulate_fuse", "local_ba", "writeback", "cull")},
+        "mapper_ms_total_per_event": spread([sum(e.values()) for e in event_ms[1:]]),
         "kernel_launches": launches,
+        "kernel_launches_mapping": cap.mapper_launches,
         "median_inliers": statistics.median(s.n_inliers for s in stats[1:]),
     }
 
     # frontend share of a frame: the extraction + stereo stage alone, timed
     # on the last image pair (host clock around a synchronized device)
-    pair = torch.from_numpy(np.stack(imgs[-1])).cuda()
+    pair = torch.from_numpy(np.stack(imgs[-1])).to(DEVICE)
     fe = []
     for _ in range(10):
         torch.cuda.synchronize()
@@ -439,45 +525,125 @@ def phase_main_path():
         fail(f"frame 0 did not initialise: {stats[0]}")
     if any(s != "OK" for s in states):
         fail(f"tracking left OK: {[(s.frame_id, s.state) for s in stats if s.state != 'OK']}")
-    if n_fused < 40:
-        fail(f"fused path served {n_fused} frames (< 40)")
-    if n_kf < 2:
-        fail(f"{n_kf} keyframes (< 2)")
-    if launches[BEST2] < 4 * n_fused:
-        fail(f"{launches[BEST2]} launches of {BEST2} for {n_fused} fused frames (< 4 per frame)")
+    if n_fused < N_FRAMES * 2 // 3:
+        fail(f"fused path served {n_fused} of {N_FRAMES} frames (< 2/3)")
+    if len(mstats) != n_kf_events or [st.kf for st in mstats] != sorted(set(st.kf for st in mstats)):
+        fail(f"{len(mstats)} mapper runs for {n_kf_events} keyframe events")
+    if n_kf_events < 3:
+        fail(f"{n_kf_events} keyframe events (< 3)")
+    if rec["points_triangulated"] <= 0:
+        fail("the mapper triangulated no point")
+    if not ba_costs or not all(np.isfinite(c) for c in ba_costs):
+        fail(f"local BA: {len(ba_costs)} runs, costs {ba_costs}")
+    if tracking_best2 < 4 * n_fused:
+        fail(f"{tracking_best2} launches of {BEST2} by tracking for {n_fused} fused frames "
+             "(< 4 per frame)")
+    if cap.mapper_launches[BEST2] < 1:
+        fail(f"the mapper launched {BEST2} no time")
     if launches[MATRIX] < 1:
         fail(f"{MATRIX} was not launched on the main path")
     if not (np.isfinite(est).all() and est.shape == (N_FRAMES, 3)):
         fail("trajectory is not finite")
     if not ate < ATE_BOUND_M:
         fail(f"ATE {ate:.4f} m >= {ATE_BOUND_M} m")
-    return rec, captured
+    if cap.ba_problem is None:
+        fail("no local BA problem was assembled")
+    return rec, cap.calls, cap.ba_problem
 
 
 def phase_path_masks(captured):
-    """The best-2 kernel timed on the inputs of the last frame's matching
-    calls (stereo, motion search, local search, leftover search)."""
-    if not captured:
+    """The best-2 kernel checked (tolerance 0) and timed on the inputs of the
+    last frame's tracking calls (stereo, motion search, local search,
+    leftover search) and of the last keyframe event's triangulation and
+    fusion searches, beside the pair it replaces (1a + `masked_best2`)."""
+    if not any(label == "tracking" for label, *_ in captured):
         fail("no best-2 call was captured on the last frame")
+    if not any(label == "triangulation" for label, *_ in captured):
+        fail("no triangulation search was captured on the last keyframe event")
     calls = []
-    for da, db, mask in captured:
+    for label, da, db, mask in captured:
         got = hamming_cuda.hamming_masked_best2(da, db, mask)
         want = hamming_cuda.hamming_masked_best2_ref(da, db, mask)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            fail(f"best-2 kernel disagrees with its plain version on a mask of the path "
+            fail(f"best-2 kernel disagrees with its plain version on a {label} mask "
                  f"{tuple(mask.shape)}")
-        calls.append(dict(time_best2(da, db, mask), mask="path",
+        calls.append(dict(time_best2(da, db, mask), mask="path", caller=label,
                           rows_with_candidates=int(mask.any(1).sum())))
-    emit({"phase": "path_masks", "calls": calls})
+    by_caller = {}
+    for label in ("tracking", "triangulation", "fusion"):
+        mine = [c for c in calls if c["caller"] == label]
+        if mine:
+            by_caller[label] = {
+                "calls": len(mine),
+                "mask_density": spread([c["mask_density"] for c in mine]),
+                "ms": spread([c["ms"] for c in mine]),
+                "pair_ms": spread([c["library_ms"] for c in mine]),
+                "kernel_slower_than_pair": sum(c["ms"] > c["library_ms"] for c in mine)}
+    emit({"phase": "path_masks", "by_caller": by_caller, "calls": calls})
     return calls
+
+
+def phase_local_ba(assembled):
+    """The last keyframe event's local BA problem: solved on the card against
+    the same problem solved by the port on the CPU, then through the
+    good-graph path (pose Schur blocks → Max-logDet selection → BA)."""
+    cfg = headline_config()
+    host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in assembled["prob"].items()}
+    cpu = LocalBAProblem(**host)
+    card = LocalBAProblem(**to_device(assembled["prob"], DEVICE))
+    free_cap = assembled["free_cap"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, _ = local_mapping.ba_solve(card, cfg, free_cap)
+    cost = float(res.final_cost)  # synchronizes
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref, _ = local_mapping.ba_solve(cpu, cfg, free_cap)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    dR = float((res.kf_R.cpu() - ref.kf_R).abs().max())
+    dt = float((res.kf_t.cpu() - ref.kf_t).abs().max())
+    cost_rel = abs(cost - float(ref.final_cost)) / max(abs(float(ref.final_cost)), 1e-12)
+
+    free = ~card.kf_fixed & card.kf_valid
+    n_free = int(free.sum())
+    n_sel = min(cfg.good_graph.subgraph_size, n_free - 1)
+    cam = cfg.camera
+    start = float(local_bundle_adjustment(card, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+                                          iters_first=0, iters_second=0).final_cost)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gres, sel = local_mapping.ba_solve(card, cfg, free_cap, n_sel, gen)
+    g_cost = float(gres.final_cost)
+    gg_ms = (time.perf_counter() - t0) * 1e3
+    n_picked = int(sel.sum())
+    rec = {"phase": "local_ba", "kfs": int(card.kf_R.shape[0]), "free_kfs": n_free,
+           "points": int(card.pt_pos.shape[0]), "obs": int(card.obs_valid.sum()),
+           "free_cap": free_cap, "cost": cost, "cpu_cost": float(ref.final_cost),
+           "max_abs_dR": dR, "max_abs_dt": dt, "cost_rel_diff": cost_rel,
+           "tolerance": {"pose": BA_POSE_TOL, "cost_rtol": BA_COST_RTOL},
+           "card_ms": card_ms, "cpu_ms": cpu_ms,
+           "good_graph": {"n_sel": n_sel, "selected": n_picked, "keeps_new_kf": bool(sel[0]),
+                          "start_cost": start, "cost": g_cost, "card_ms": gg_ms}}
+    emit(rec)
+    if not (np.isfinite(cost) and dR <= BA_POSE_TOL and dt <= BA_POSE_TOL
+            and cost_rel <= BA_COST_RTOL):
+        fail(f"local BA on the card disagrees with the CPU: dR {dR}, dt {dt}, cost {cost_rel}")
+    if n_sel < 1 or n_picked != n_sel or not bool(sel[0]):
+        fail(f"good-graph selection picked {n_picked} of {n_sel} requested")
+    if not (np.isfinite(g_cost) and g_cost <= start):
+        fail(f"good-graph BA cost {g_cost} (start {start})")
+    return rec
 
 
 def main():
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    run, captured = phase_main_path()
+    run, captured, ba_problem = phase_main_path()
     path_calls = phase_path_masks(captured)
+    phase_local_ba(ba_problem)
     # the best-2 kernel's headline numbers are those on the path's own masks,
     # largest shape first; the synthetic masks of phase `kernels` follow
     best2 = kernels[BEST2]
@@ -485,7 +651,8 @@ def main():
     head = shapes[0]
     best2.update({k: head[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}, shapes=shapes)
-    emit({"kernels": [dict(rec, launches=run["kernel_launches"][name])
+    emit({"kernels": [dict(rec, launches=run["kernel_launches"][name],
+                           launches_mapping=run["kernel_launches_mapping"][name])
                       for name, rec in kernels.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

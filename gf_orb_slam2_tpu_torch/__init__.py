@@ -1,14 +1,16 @@
 """PyTorch/CUDA port of the good-feature visual SLAM engine.
 
-Second package beside the JAX one, written for one NVIDIA Hopper GPU. This
-slice covers synchronous stereo tracking: ORB extraction, stereo matching,
+Second package beside the JAX one, written for one NVIDIA Hopper GPU. It
+covers synchronous stereo tracking — ORB extraction, stereo matching,
 motion-model + local-map tracking with good-feature selection and pose
 optimization, the keyframe policy and stereo keyframe creation
-(`System.track_stereo`). It imports torch and numpy only.
+(`System.track_stereo`) — and synchronous local mapping on every keyframe
+event: triangulation, fusion, local BA with good-graph selection, keyframe
+culling. It imports torch and numpy only.
 
 Entry points take an explicit `device` and default to "cuda"; nothing picks
-the CPU because no GPU was found. The one hand-written kernel (256-bit
-Hamming distance matrix, csrc/hamming.cu) is built at first use, never at
+the CPU because no GPU was found. The hand-written Hamming kernels
+(csrc/hamming.cu, csrc/hamming_best2.cu) are built at first use, never at
 import.
 """
 

@@ -20,6 +20,7 @@ import torch
 
 from gf_orb_slam2_tpu_torch import config as _config
 from gf_orb_slam2_tpu_torch.features.extractor import Features
+from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper, MappingStats
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import Frame
 from gf_orb_slam2_tpu_torch.utils.transfer import desc_to_torch
@@ -66,6 +67,22 @@ def store_from_arrays(cap, n_kp: int, arrays: dict) -> MapStore:
         else:
             setattr(s, k, v)
     return s
+
+
+def mapper_state(mapper) -> dict:
+    """The host state a local mapper carries between keyframe events (the
+    recently created points under probation and the per-event log) — works
+    on either package's mapper, since it only reads attributes."""
+    return {"recent_points": [(int(p), int(b)) for p, b in mapper.recent_points],
+            "stats": [dataclasses.asdict(st) for st in mapper.stats]}
+
+
+def load_mapper_state(mapper: LocalMapper, state: dict) -> LocalMapper:
+    """Give the port's mapper the state `mapper_state` extracted, so that it
+    continues from the same point as the mapper it came from."""
+    mapper.recent_points = [tuple(r) for r in state["recent_points"]]
+    mapper.stats = [MappingStats(**d) for d in state["stats"]]
+    return mapper
 
 
 def frame_from_arrays(arrays: dict) -> Frame:

@@ -6,12 +6,13 @@ TrackStereo, reset and trajectory savers. The pipeline is an explicit
 host-side sequence per frame: the frontend and the tracking step run on the
 device, the keyframe policy and map bookkeeping on the host.
 
-This package covers synchronous stereo tracking. Keyframes and their new
-close stereo points are inserted by the tracker, so the map grows and
-tracking continues across a sequence; local mapping (triangulation, fusion,
-bundle adjustment), loop closing, relocalization, the pipelined tracking loop and
-the mono/RGB-D sensors are not part of it yet — `_on_keyframe` records each
-keyframe event for the mapper that will consume them.
+This package covers synchronous stereo tracking with synchronous local
+mapping: the tracker inserts keyframes and their close stereo points, and
+every keyframe event then runs the local mapper (triangulation, fusion,
+local bundle adjustment with good-graph selection, KF culling) before the
+next frame. Loop closing, relocalization, the pipelined/asynchronous drivers
+and the mono/RGB-D sensors are not part of it yet; the options that would
+ask for them raise instead of being ignored.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from gf_orb_slam2_tpu_torch.config import Sensor, SystemConfig
 from gf_orb_slam2_tpu_torch.features.extractor import ORBExtractor
 from gf_orb_slam2_tpu_torch.geometry import camera as cam_mod
 from gf_orb_slam2_tpu_torch.io import trajectory as traj_io
+from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper
 from gf_orb_slam2_tpu_torch.matching import stereo as stereo_mod
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
@@ -43,6 +45,14 @@ class System:
     def __init__(self, cfg: SystemConfig, device="cuda"):
         """`device` is taken as given: with the default and no CUDA device
         present, construction raises (nothing falls back to the CPU)."""
+        if cfg.loop.enabled:
+            raise NotImplementedError(
+                "loop closing is not part of this package yet: pass "
+                "loop=LoopClosingConfig(enabled=False)")
+        if cfg.tracking.async_mapping:
+            raise NotImplementedError(
+                "asynchronous mapping is not part of this package yet: pass "
+                "tracking=TrackingConfig(async_mapping=False)")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -59,9 +69,10 @@ class System:
         scales = np.asarray(self.extractor.scales, np.float32)
         self._scales_dev = torch.from_numpy(scales).to(self.device)
         self.tracker = Tracker(cfg, self.store, n_kp, scales, self.device)
+        self.mapper = LocalMapper(cfg, self.store, n_kp, scales, self.device)
+        # anticipation budgeting reads the tracker's motion model
+        self.mapper.velocity_provider = lambda: self.tracker.velocity
         self.frame_id = 0
-        # keyframe events, in order, for the local mapper of a later slice
-        self.pending_keyframes: list = []
         self._rectify_left: Optional[cam_mod.RectifyMap] = None
         self._rectify_right: Optional[cam_mod.RectifyMap] = None
         if cam.left_K is not None:
@@ -92,9 +103,9 @@ class System:
         return frame.pose_matrix()
 
     def _on_keyframe(self, kf: int):
-        """KF post-processing hook. Local mapping is not ported yet: the
-        event is recorded and no bundle adjustment runs."""
-        self.pending_keyframes.append(int(kf))
+        """KF post-processing: the local mapping stages, synchronously
+        (reference: LocalMapping::Run, run here before the next frame)."""
+        self.mapper.process_keyframe(kf)
 
     # ------------------------------------------------------- frame builders
     def _pad_feats(self, f):
@@ -155,7 +166,7 @@ class System:
         tr.n_lost = 0
         tr._cached_pool = None
         tr.relative_poses.clear()
-        self.pending_keyframes.clear()
+        self.mapper.recent_points.clear()
 
     def shutdown(self):
         """Reference: System::Shutdown (System.cc:382). This slice starts no

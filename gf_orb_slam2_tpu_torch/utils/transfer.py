@@ -27,6 +27,32 @@ def to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.numpy() for k, v in out.items()}
 
 
+_TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
+                np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+                np.dtype(np.uint32): torch.int32, np.dtype(bool): torch.bool,
+                np.dtype(np.uint8): torch.uint8}
+
+
+def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Upload a dict of numpy arrays in ONE host→device copy: they are packed
+    (16-byte aligned) into one buffer — pinned when the target is a CUDA
+    device — copied asynchronously, and viewed on the device as tensors of
+    their own dtype and shape (uint32 words as int32 with the same bits)."""
+    device = torch.device(device)
+    offsets, total = {}, 0
+    for k, a in arrays.items():
+        a = np.ascontiguousarray(a)
+        offsets[k] = (total, a)
+        total += -(-a.nbytes // 16) * 16
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    flat = host.numpy()
+    for off, a in offsets.values():
+        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    return {k: dev[off:off + a.nbytes].view(_TORCH_DTYPE[a.dtype]).reshape(a.shape)
+            for k, (off, a) in offsets.items()}
+
+
 def desc_to_torch(desc: np.ndarray, device) -> torch.Tensor:
     """Host descriptors (numpy uint32 words) → int32 tensor with the same
     bits on `device`."""

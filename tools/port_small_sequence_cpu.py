@@ -5,15 +5,16 @@
 
 Tracks the first frames of the rendered room tour at 320x240 (600 features,
 1024-point local pool) with the PyTorch port (`device="cpu"`, one thread)
-and with the JAX package whose mapper is switched off on the instance
-(`mapper.process_keyframe` replaced by a no-op — no file of that package
-changes), i.e. in the state this slice of the port is in: tracking inserts
-keyframes and stereo points, nothing runs bundle adjustment. Prints the
-per-frame statistics side by side and both ATE RMSE figures against the
-renderer's ground truth. Accuracy and counts only: a CPU run says nothing
-about speed on the GPU.
+and with the JAX package, both with synchronous local mapping on
+(triangulation, fusion, local BA, KF culling) and loop closing off. The JAX
+mapper's background compile warm-up is switched off (GF_SLAM_NO_PREWARM): it
+compiles at first use instead. Prints the per-frame statistics side by side,
+each package's mapping log per keyframe event, and both ATE RMSE figures
+against the renderer's ground truth. Accuracy and counts only: a CPU run
+says nothing about speed on the GPU.
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -37,6 +38,7 @@ def configs():
         sensor=jc.Sensor.STEREO, camera=cam, orb=jc.ORBConfig(n_features=600),
         capacity=jc.CapacityConfig(max_keypoints=640, max_map_points=8000,
                                    max_keyframes=40, max_local_points=1024),
+        tracking=jc.TrackingConfig(async_mapping=False),
         loop=jc.LoopClosingConfig(enabled=False), vocabulary_path="")
     return jcfg, convert.config_from_reference(jcfg)
 
@@ -45,6 +47,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=12)
     args = ap.parse_args()
+    os.environ["GF_SLAM_NO_PREWARM"] = "1"
     import torch
 
     torch.set_num_threads(1)
@@ -59,7 +62,6 @@ def main():
     poses = trajectory_tour(300)[: args.frames]
     gt = np.stack([-R.T @ t for R, t in poses])
     js = JSystem(jcfg)
-    js.mapper.process_keyframe = lambda *a, **k: None  # mapping off
     ts = TSystem(tcfg, device="cpu")
     est = {"jax": [], "torch": []}
     for i, (R, t) in enumerate(poses):
@@ -73,10 +75,14 @@ def main():
             row[name] = [st.state, st.n_motion_matches, st.n_local_points,
                          st.n_local_matches, st.n_inliers, st.created_kf]
         print(json.dumps(row), flush=True)
+    for name, slam in (("jax", js), ("torch", ts)):
+        for st in slam.mapper.stats:
+            print(json.dumps({"mapping": name, **dataclasses.asdict(st)}))
     print(json.dumps({
         "frames": args.frames,
         "ate_rmse_m": {k: ate_rmse(np.stack(v), gt) for k, v in est.items()},
         "keyframes": {"jax": int(js.store.n_keyframes), "torch": int(ts.store.n_keyframes)},
+        "map_points": {"jax": int(js.store.n_points), "torch": int(ts.store.n_points)},
     }))
     js.shutdown()
     ts.shutdown()

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where a frame's time goes in the PyTorch/CUDA port (one NVIDIA GPU).
 
-    python3 tools/profile_torch_tracking.py [--frames 30] [--out DIR]
+    python3 tools/profile_torch_tracking.py [--frames 30] [--map-frames 60] [--out DIR]
 
 Drives `System.track_stereo` at the headline stereo configuration on the
-rendered room tour (the scene of chip_smoke.py) and reports, for the steady
-frames after the warm-up:
+rendered room tour (the scene of chip_smoke.py), local mapping on, and
+reports, for the steady frames after the warm-up:
 
 - per-stage milliseconds (host clock around a synchronized device) for the
   frontend and the parts of the fused tracking step, by wrapping the stage
   functions — synchronizing at every stage boundary slows the frame a little,
   so the per-frame total is also measured without the wrappers;
 - a `torch.profiler` window: kernels launched per frame, device-busy share of
-  the wall time, and the top operators by device and by host time.
+  the wall time, and the top operators by device and by host time;
+- then, over the next `--map-frames` frames, the mapper's stages per keyframe
+  event (map.refresh, map.triangulate_fuse, map.local_ba, map.cull): each
+  stage call runs under its own `torch.profiler` window, giving its wall
+  milliseconds, its device kernels and its device-busy share.
 
 Prints one JSON object (also written to <out>/profile_torch_tracking.json)
 with the card's name and power limit beside the numbers.
@@ -34,6 +38,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (scene, configuration and renderer loader)
 from gf_orb_slam2_tpu_torch.features import extractor as extractor_mod  # noqa: E402
+from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper  # noqa: E402
 from gf_orb_slam2_tpu_torch.matching import matcher, stereo  # noqa: E402
 from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim import pose_opt  # noqa: E402
@@ -48,6 +53,12 @@ STAGES = (
     (observability, "info_matrices", "track.info_matrices"),
     (good_feature, "lazier_greedy_select", "track.lazier_greedy_select"),
 )
+MAP_STAGES = (
+    ("refresh", "map.refresh"),
+    ("create_and_fuse", "map.triangulate_fuse"),
+    ("run_local_ba", "map.local_ba"),
+    ("cull_keyframes", "map.cull"),
+)
 
 
 def render(n):
@@ -56,7 +67,8 @@ def render(n):
     for R_cw, t_cw in chip_smoke.trajectory_tour(chip_smoke.TOUR_FRAMES)[:n]:
         left, right = world.render_stereo(
             R_cw, t_cw, baseline=chip_smoke.BASELINE_M, fx=chip_smoke.FX,
-            fy=chip_smoke.FY, cx=chip_smoke.CX, cy=chip_smoke.CY)
+            fy=chip_smoke.FY, cx=chip_smoke.CX, cy=chip_smoke.CY,
+            w=chip_smoke.WIDTH, h=chip_smoke.HEIGHT)
         out.append((np.clip(left, 0, 255).astype(np.uint8),
                     np.clip(right, 0, 255).astype(np.uint8)))
     return out
@@ -73,9 +85,61 @@ def track(slam, imgs, start, stop):
     return ms
 
 
+def _device_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _is_kernel(e):
+    return getattr(e, "device_type", None) is not None and "cuda" in str(e.device_type).lower()
+
+
+def profile_mapper_stages(slam, imgs, start, stop):
+    """Track frames [start, stop) with every mapper stage call run under its
+    own profiler window; returns per-stage records per keyframe event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    records = collections.defaultdict(list)
+    originals = []
+    for name, label in MAP_STAGES:
+        fn = getattr(LocalMapper, name)
+        originals.append((name, fn))
+
+        def timed(self, *aa, _fn=fn, _label=label, **kw):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = _fn(self, *aa, **kw)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            ka = prof.key_averages()
+            dev = sum(_device_us(e) for e in ka) / 1e3
+            records[_label].append({"ms": wall, "kernels": sum(e.count for e in ka if _is_kernel(e)),
+                                    "device_ms": dev})
+            return out
+
+        setattr(LocalMapper, name, timed)
+    n_events0 = len(slam.mapper.stats)
+    try:
+        track(slam, imgs, start, stop)
+    finally:
+        for name, fn in originals:
+            setattr(LocalMapper, name, fn)
+    n_events = len(slam.mapper.stats) - n_events0
+    out = {"frames": stop - start, "keyframe_events": n_events}
+    for label, recs in records.items():
+        ms = [r["ms"] for r in recs]
+        out[label] = {
+            "calls_per_event": len(recs) / max(n_events, 1),
+            "ms_per_event_median": statistics.median(ms), "ms_per_event_max": max(ms),
+            "kernels_per_event_median": statistics.median(r["kernels"] for r in recs),
+            "device_busy_share": sum(r["device_ms"] for r in recs) / sum(ms)}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--map-frames", type=int, default=60)
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,7 +149,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     hamming_cuda.load()
-    imgs = render(n)
+    imgs = render(n + args.map_frames)
     slam = System(chip_smoke.headline_config())
     third = (n - 8) // 3
     a, b, c = 8, 8 + third, 8 + 2 * third
@@ -129,15 +193,13 @@ def main():
     n_prof = n - c
     ka = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in ka if getattr(e, "device_type", None) is not None
-               and "cuda" in str(e.device_type).lower()]
+    dev_us = _device_us
+    kernels = [e for e in ka if _is_kernel(e)]
     device_ms = sum(dev_us(e) for e in ka) / 1e3
     n_kernels = sum(e.count for e in kernels)
     top_dev = sorted(ka, key=dev_us, reverse=True)[:12]
     top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    mapping = profile_mapper_stages(slam, imgs, n, n + args.map_frames)
     out = {
         "card": smi, "torch": torch.__version__, "frames": n,
         "frame_ms_median_plain": statistics.median(plain_ms),
@@ -157,6 +219,7 @@ def main():
                 {"name": e.key[:60], "calls_per_frame": e.count / n_prof,
                  "host_ms_per_frame": e.self_cpu_time_total / 1e3 / n_prof} for e in top_cpu],
         },
+        "mapping": mapping,
     }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_torch_tracking.json"), "w") as f:
