@@ -13,7 +13,15 @@ local mapping on every keyframe event (triangulation, fusion, local BA, KF
 culling) — over 150 rendered frames, checks the trajectory against the
 renderer's ground truth, that every keyframe event went through the mapper
 and that both kernels were launched by the run (the mapper's launches of the
-best-2 kernel counted apart), times the best-2 kernel on the masks of the
+best-2 kernel counted apart). Then it drives the other entry point of the
+same system on the same frames, as bench.py does: 16 frames through
+`track_stereo`, the rest through `track_stereo_pipelined` with the
+asynchronous mapping worker, then `flush_pipeline()` — and checks that every
+frame comes back once and OK, the trajectory, the worker's BA accounting,
+that the streaming step served the frames and launched the best-2 kernel
+(by thread: tracking and mapping worker), that the device map mirror equals
+the store, and that dispatching a streamed frame never synchronizes with the
+device. Last, it times the best-2 kernel on the masks of the synchronous
 run's last frame and of its last keyframe event's triangulation and fusion
 searches, and solves that event's local BA problem on the card against the
 same problem on the CPU, plainly and through good-graph selection. Each phase
@@ -31,6 +39,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -49,7 +58,8 @@ from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.local_ba import (  # noqa: E402
     LocalBAProblem, local_bundle_adjustment,
 )
-from gf_orb_slam2_tpu_torch.system import System  # noqa: E402
+from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror  # noqa: E402
+from gf_orb_slam2_tpu_torch.system import MAPPING_THREAD, System  # noqa: E402
 from gf_orb_slam2_tpu_torch.utils.transfer import to_device  # noqa: E402
 
 
@@ -75,6 +85,10 @@ BF = FX * BASELINE_M
 N_FRAMES = 150
 TOUR_FRAMES = 300
 ATE_BOUND_M = 0.05  # the JAX package's synchronous gate with mapping on (tests/test_rendered_ate.py)
+PIPELINED_ATE_BOUND_M = 0.20  # the JAX package's limit for its pipelined driver (bench.py)
+SYNC_FRAMES = 16  # bench.py: synchronous frames before the pipelined ones
+BENCH_WARM = 40   # bench.py: per-call times from this frame on
+GUARDED = 3       # last dispatches checked for host synchronization
 DEVICE = "cuda"
 BA_POSE_TOL, BA_COST_RTOL = 1e-3, 1e-3  # card against CPU, same BA problem
 
@@ -359,7 +373,9 @@ def phase_kernels():
     return records
 
 
-def headline_config():
+def headline_config(async_mapping=False):
+    """bench.py's configuration; `async_mapping` selects its pipelined
+    driver's mapping worker (pipeline depth 3, the default)."""
     cam = CameraConfig(fx=FX, fy=FY, cx=CX, cy=CY, bf=BF, th_depth=40.0)
     return SystemConfig(
         sensor=Sensor.STEREO, camera=cam,
@@ -371,7 +387,7 @@ def headline_config():
             constr_per_frame=160, lazier_factor=10, search_additional=True,
             info_mat_size=7),
         tracking=TrackingConfig(pose_opt_rounds=3, pose_opt_iters=8,
-                                async_mapping=False),
+                                async_mapping=async_mapping, pipeline_depth=3),
         loop=LoopClosingConfig(enabled=False),
     )
 
@@ -441,18 +457,22 @@ def spread(values):
     return {"median": statistics.median(values), "max": max(values)} if values else None
 
 
-def phase_main_path():
+def render_tour():
+    """The first N_FRAMES stereo pairs of the room tour and the ground-truth
+    camera centres."""
     world = RoomWorld(width=9.0, height=5.5, length=13.0)
     poses = trajectory_tour(TOUR_FRAMES)[:N_FRAMES]
     gt = np.stack([-R.T @ t for R, t in poses])
-    t0 = time.perf_counter()
     imgs = []
     for R_cw, t_cw in poses:
         left, right = world.render_stereo(R_cw, t_cw, baseline=BASELINE_M, fx=FX, fy=FY,
                                           cx=CX, cy=CY, w=WIDTH, h=HEIGHT)
         imgs.append((np.clip(left, 0, 255).astype(np.uint8),
                      np.clip(right, 0, 255).astype(np.uint8)))
-    render_s = time.perf_counter() - t0
+    return imgs, gt
+
+
+def phase_main_path(imgs, gt, render_s):
 
     slam = System(headline_config(), device=DEVICE)  # the card: no CPU fallback
     est, frame_ms = [], []
@@ -551,6 +571,164 @@ def phase_main_path():
     return rec, cap.calls, cap.ba_problem
 
 
+def _mirror_stale_rows(store):
+    """Valid points whose mirrored row differs from the store (exact)."""
+    m = store.mirror
+    m.sync()
+    v = np.nonzero(store.point_valid)[0]
+    host = dict(pos=store.point_pos, normal=store.point_normal,
+                mind=store.point_min_dist, maxd=store.point_max_dist,
+                desc=store.point_desc.view(np.int32))
+    stale = np.zeros(v.size, bool)
+    for k, a in host.items():
+        got = m.arrays[k].cpu().numpy()[v]
+        stale |= (got != a[v]).reshape(v.size, -1).any(1)
+    return int(stale.sum()), int(v.size)
+
+
+def phase_pipelined(imgs, gt, sync_ate):
+    """bench.py's driver on the card: frames 0-15 through `track_stereo`,
+    16-149 through `track_stereo_pipelined` with the mapping worker
+    (`tracking.async_mapping`, pipeline depth 3), then `flush_pipeline()`.
+    Per-call host ms over frames 40 onward (bench.py's window), as bench.py
+    takes it: the call returns without waiting for the device. The last
+    GUARDED dispatches run under `torch.cuda.set_sync_debug_mode("error")`
+    with the worker idle (the mode is process-wide): any host
+    synchronization in the upload, mirror sync, frontend, stream step or
+    download enqueue raises. Kernel launches are counted by thread."""
+    slam = System(headline_config(async_mapping=True), device=DEVICE)
+    timers = {"mirror_sync": [], "dispatch": [], "complete": []}
+    queue_depth, checked, guarded, sync_errors = [], [], [], []
+
+    def timed(fn, key):
+        def run(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                timers[key].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    dispatch = timed(slam._dispatch_stream, "dispatch")
+
+    def dispatch_checked(*a):
+        if slam.frame_id < N_FRAMES - GUARDED:
+            return dispatch(*a)
+        if slam._map_worker is not None:
+            slam._map_worker.wait_idle()
+        fid = slam.frame_id
+        checked.append(fid)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch(*a)
+        except RuntimeError:
+            # a failed dispatch leaves no state behind (the chain advances
+            # and the frame is queued only at its end): record the failure,
+            # dispatch the frame again unguarded, fail after the record
+            sync_errors.append(traceback.format_exc())
+        else:
+            guarded.append(fid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if slam.frame_id == fid:
+            dispatch(*a)
+
+    orig_sync = DeviceMapMirror.sync
+    DeviceMapMirror.sync = timed(orig_sync, "mirror_sync")
+    slam._dispatch_stream = dispatch_checked
+    slam._complete_one = timed(slam._complete_one, "complete")
+    est, sync_ms, call_ms = {}, [], []
+
+    def note(fid, T):
+        if fid in est:
+            fail(f"frame {fid} was returned twice")
+        est[fid] = -T[:3, :3].T @ T[:3, 3]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hamming_cuda.reset_launch_counts()
+    try:
+        for i in range(SYNC_FRAMES):
+            t0 = time.perf_counter()
+            note(i, slam.track_stereo(imgs[i][0], imgs[i][1], i / 20.0))
+            if i >= 10:
+                sync_ms.append((time.perf_counter() - t0) * 1e3)
+        for i in range(SYNC_FRAMES, N_FRAMES):
+            t0 = time.perf_counter()
+            for fid, T in slam.track_stereo_pipelined(imgs[i][0], imgs[i][1], i / 20.0):
+                note(fid, T)
+            call_ms.append((i, (time.perf_counter() - t0) * 1e3))
+            if slam._map_worker is not None:
+                queue_depth.append(slam._map_worker.queue_depth())
+        for fid, T in slam.flush_pipeline():
+            note(fid, T)
+        torch.cuda.synchronize()
+        launches = {"tracking": hamming_cuda.thread_launch_counts("MainThread"),
+                    "mapping": hamming_cuda.thread_launch_counts(MAPPING_THREAD)}
+        stale, n_valid = _mirror_stale_rows(slam.store)
+    finally:
+        DeviceMapMirror.sync = orig_sync
+
+    stats = slam.tracker.stats
+    n_stream = sum(s.path == "stream" and s.frame_id >= SYNC_FRAMES for s in stats)
+    n_kf = sum(bool(s.created_kf) for s in stats)
+    w = slam._map_worker
+    times = [ms for i, ms in call_ms if i >= BENCH_WARM and i not in checked]
+    common = sorted(est)
+    ate = ate_rmse(np.stack([est[i] for i in common]), gt[common]) if common else float("nan")
+    rec = {
+        "phase": "pipelined", "frames": N_FRAMES, "sync_frames": SYNC_FRAMES,
+        "metric": "stereo_tracking_ms_per_frame_mean", "mean": statistics.fmean(times),
+        "unit": "ms/frame", "median_ms": statistics.median(times),
+        "p90_ms": float(np.percentile(times, 90)),
+        "sync_latency_ms": statistics.median(sync_ms),
+        "n_frames_measured": len(times), "n_keyframes": int(slam.store.n_keyframes),
+        "n_stream_fallbacks": slam.n_stream_fallbacks, "ate_m": ate,
+        "ate_sync_main_path_m": sync_ate, "ate_bound_m": PIPELINED_ATE_BOUND_M,
+        "n_ba_runs": w.n_ba_runs if w else 0, "n_ba_merged": w.n_ba_merged if w else 0,
+        "n_kf_events": w.n_kf_events if w else 0, "keyframes_created": n_kf,
+        "stream_frames": n_stream, "states_ok": sum(s.state == "OK" for s in stats),
+        "frames_returned": len(est), "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "kernel_launches": launches,
+        "best2_tracking_per_stream_frame": launches["tracking"][BEST2] / max(n_stream, 1),
+        "driver_ms": {k: spread(v) for k, v in timers.items()},
+        "worker_queue_depth_max": max(queue_depth, default=0),
+        "worker_max_batch": w.max_batch if w else 0,
+        "mapper_ms_total_per_event": spread([sum(e.values()) for e in slam.mapper.event_ms[1:]]),
+        "guarded_dispatches": guarded, "guarded_dispatches_that_synchronized": len(sync_errors),
+        "mirror_stale_rows": stale, "mirror_valid_rows": n_valid,
+    }
+    emit(rec)
+    slam.shutdown()
+    if sorted(est) != list(range(N_FRAMES)):
+        fail(f"frames returned: {len(est)} of {N_FRAMES}, missing "
+             f"{sorted(set(range(N_FRAMES)) - set(est))[:10]}")
+    if any(s.state != "OK" for s in stats):
+        fail(f"tracking left OK: {[(s.frame_id, s.state) for s in stats if s.state != 'OK'][:10]}")
+    if not (np.isfinite(ate) and ate < PIPELINED_ATE_BOUND_M):
+        fail(f"pipelined ATE {ate} m >= {PIPELINED_ATE_BOUND_M} m")
+    if not (w and w.n_ba_runs + w.n_ba_merged == w.n_kf_events == n_kf):
+        fail(f"BA accounting: runs {rec['n_ba_runs']} + merged {rec['n_ba_merged']}, "
+             f"events {rec['n_kf_events']}, keyframes created {n_kf}")
+    if n_stream < (N_FRAMES - SYNC_FRAMES) * 2 // 3:
+        fail(f"the stream path served {n_stream} of {N_FRAMES - SYNC_FRAMES} frames (< 2/3)")
+    if launches["tracking"][BEST2] < 4 * n_stream:
+        fail(f"tracking launched {BEST2} {launches['tracking'][BEST2]} times for "
+             f"{n_stream} streamed frames (< 4 per frame)")
+    if launches["mapping"][BEST2] < 1:
+        fail(f"the mapping worker launched {BEST2} no time")
+    if launches["tracking"][MATRIX] + launches["mapping"][MATRIX] < 1:
+        fail(f"{MATRIX} was not launched in the pipelined run")
+    if stale:
+        fail(f"{stale} of {n_valid} valid points differ between the mirror and the store")
+    if sync_errors:
+        fail(f"{len(sync_errors)} of {len(checked)} guarded dispatches synchronized with the "
+             f"device; the first:\n{sync_errors[0]}")
+    if len(guarded) != GUARDED:
+        fail(f"{len(guarded)} of the last {GUARDED} frames were dispatched on the stream path")
+    return rec
+
+
 def phase_path_masks(captured):
     """The best-2 kernel checked (tolerance 0) and timed on the inputs of the
     last frame's tracking calls (stereo, motion search, local search,
@@ -641,7 +819,11 @@ def main():
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    run, captured, ba_problem = phase_main_path()
+    t0 = time.perf_counter()
+    imgs, gt = render_tour()
+    render_s = time.perf_counter() - t0
+    run, captured, ba_problem = phase_main_path(imgs, gt, render_s)
+    pipelined = phase_pipelined(imgs, gt, run["ate_rmse_m"])
     path_calls = phase_path_masks(captured)
     phase_local_ba(ba_problem)
     # the best-2 kernel's headline numbers are those on the path's own masks,
@@ -651,8 +833,11 @@ def main():
     head = shapes[0]
     best2.update({k: head[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}, shapes=shapes)
+    pl = pipelined["kernel_launches"]
     emit({"kernels": [dict(rec, launches=run["kernel_launches"][name],
-                           launches_mapping=run["kernel_launches_mapping"][name])
+                           launches_mapping=run["kernel_launches_mapping"][name],
+                           launches_pipelined_tracking=pl["tracking"][name],
+                           launches_pipelined_mapping=pl["mapping"][name])
                       for name, rec in kernels.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

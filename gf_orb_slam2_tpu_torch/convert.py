@@ -21,8 +21,10 @@ import torch
 from gf_orb_slam2_tpu_torch import config as _config
 from gf_orb_slam2_tpu_torch.features.extractor import Features
 from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper, MappingStats
+from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import Frame
+from gf_orb_slam2_tpu_torch.tracking.tracker import chain_to_device
 from gf_orb_slam2_tpu_torch.utils.transfer import desc_to_torch
 
 
@@ -67,6 +69,22 @@ def store_from_arrays(cap, n_kp: int, arrays: dict) -> MapStore:
         else:
             setattr(s, k, v)
     return s
+
+
+def store_with_mirror(cap, n_kp: int, arrays: dict, device="cuda") -> MapStore:
+    """`store_from_arrays` with a device map mirror attached, built from the
+    same arrays (what the pipelined tracker reads its pool from)."""
+    s = store_from_arrays(cap, n_kp, arrays)
+    with s.lock:
+        s.mirror = DeviceMapMirror(s, device)
+    return s
+
+
+def chain_from_arrays(arrays: dict, device="cuda") -> dict:
+    """The pipelined tracker's chain from host arrays keyed R1, t1, R2, t2,
+    pt_pos, pt_oct, pt_valid, pt_desc (uint32 words), pt_ids — e.g. the
+    JAX package's `Tracker.stream_bootstrap_chain()` fetched as numpy."""
+    return chain_to_device(arrays, device)
 
 
 def mapper_state(mapper) -> dict:

@@ -82,7 +82,9 @@ def match_stereo(
     # Frame.cc:1030 region)
     sad_sorted = torch.sort(torch.where(accept, smin, float("inf"))).values
     n_ok = accept.sum()
-    med = sad_sorted[torch.clamp(n_ok // 2, 0, n_l - 1)]
+    # a one-element index tensor, not a 0-dim one: indexing with a 0-dim
+    # tensor reads its value on the host, which waits for the device
+    med = sad_sorted.index_select(0, torch.clamp(n_ok // 2, 0, n_l - 1).reshape(1))[0]
     accept = accept & (smin <= 1.5 * 1.4826 * torch.clamp(med, min=1e-3) + 1e-3)
 
     accept = hamming.resolve_duplicates(best_idx, best, accept, kp_r_uv.shape[0])

@@ -39,6 +39,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -52,16 +53,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_DIST = 256
 MAX_COLUMNS = 1 << 22  # the best-2 key d*M + column must fit 32 bits
 
-# launches of each CUDA kernel by this process (the plain versions never count)
+# launches of each CUDA kernel by this process (the plain versions never
+# count), in all and by the name of the launching thread (the pipelined
+# System's mapping worker is the thread named "mapping")
 launch_counts = {"hamming_distance_matrix": 0, "hamming_masked_best2": 0}
+launch_counts_by_thread = {}
+_count_lock = threading.Lock()
 
 _lib = None
 _ROW_CHUNK = 256  # rows per step of the plain version (bounds its scratch)
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+        launch_counts_by_thread.clear()
+
+
+def thread_launch_counts(thread_name: str) -> dict:
+    """Launches of each kernel by the threads of that name since the last
+    reset."""
+    with _count_lock:
+        return dict(launch_counts_by_thread.get(thread_name, dict.fromkeys(launch_counts, 0)))
 
 
 def _find_nvcc() -> str:
@@ -160,7 +174,11 @@ def _launch(name, entry, device, *args):
         err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
-    launch_counts[name] += 1
+    with _count_lock:
+        launch_counts[name] += 1
+        mine = launch_counts_by_thread.setdefault(
+            threading.current_thread().name, dict.fromkeys(launch_counts, 0))
+        mine[name] += 1
 
 
 def launch_empty_kernel():

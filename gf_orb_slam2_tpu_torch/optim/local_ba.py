@@ -199,7 +199,7 @@ def local_bundle_adjustment(
     kf_R, kf_t, pt_pos = prob.kf_R, prob.kf_t, prob.pt_pos
     active = base_valid
     cost = robust_cost(kf_R, kf_t, pt_pos, active)
-    lam = torch.tensor(1e-4, dtype=dt, device=dev)
+    lam = torch.full((), 1e-4, dtype=dt, device=dev)  # a fill: no host-to-device copy
     for step in range(iters_first + iters_second):
         r, J_pose, J_pt, depth = _residuals(prob, kf_R, kf_t, pt_pos, fx, fy, cx, cy, bf)
         c2 = _chi2(r, prob.obs_inv_sigma2, is_stereo)

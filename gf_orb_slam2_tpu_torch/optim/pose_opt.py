@@ -119,7 +119,7 @@ def pose_optimization(
     R, t = R0, t0
     inlier = valid
     cost = robust_cost(R, t, inlier)
-    lam = torch.tensor(1e-3, dtype=dt, device=dev)
+    lam = torch.full((), 1e-3, dtype=dt, device=dev)  # a fill: no host-to-device copy
     lam0 = lam.clone()
     for step in range(rounds * iters):
         # Exactly TWO residual passes per step: the Jacobian pass at the

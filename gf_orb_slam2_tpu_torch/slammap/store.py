@@ -21,7 +21,10 @@ Capability parity map:
   matrices replace grid candidate pruning (see matching/matcher.py).
 
 Host state only: descriptors are numpy uint32 here and cross to torch as
-int32 views of the same bits (see convert.py).
+int32 views of the same bits (see convert.py). The pipelined tracker reads
+point data from a device copy (slammap/device_mirror.py): every write of
+point position, normal, distance range or descriptor marks the point dirty
+through `mark_dirty`, and the mirror ships the marked rows at its next sync.
 """
 from __future__ import annotations
 
@@ -139,6 +142,7 @@ class MapStore:
         import threading
 
         self.lock = threading.RLock()
+        self.mirror = None  # DeviceMapMirror while the pipelined path is live
 
     # ------------------------------------------------------------ keyframes
     @_locked
@@ -245,7 +249,15 @@ class MapStore:
         self.obs_idx[p] = -1
         self.n_points += 1
         self.next_point = p + 1
+        self.mark_dirty(p)
         return p
+
+    @_locked
+    def mark_dirty(self, ids):
+        """Record point-data changes for the device map mirror, if one is
+        attached (slammap/device_mirror.py)."""
+        if self.mirror is not None:
+            self.mirror.mark(np.atleast_1d(ids))
 
     @_locked
     def add_points_batch(self, pos, desc, first_kf, kf_ids, kp_idx) -> np.ndarray:
@@ -275,6 +287,7 @@ class MapStore:
         self.obs_idx[ids, 0] = kp_idx
         self.kf_point[kf_ids, kp_idx] = ids
         self.n_points += m
+        self.mark_dirty(ids)
         return ids
 
     @_locked
@@ -415,6 +428,7 @@ class MapStore:
         d = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)  # [M,M]
         med = np.median(d, axis=1)
         self.point_desc[p] = descs[np.argmin(med)]
+        self.mark_dirty(p)
 
     def update_normal_and_depth(self, p: int, level_scales: np.ndarray, ref_octave: Optional[int] = None):
         """Mean viewing direction + scale-invariance range (reference:
@@ -436,6 +450,7 @@ class MapStore:
         n_levels = len(level_scales)
         self.point_max_dist[p] = dist * sf
         self.point_min_dist[p] = self.point_max_dist[p] / level_scales[n_levels - 1]
+        self.mark_dirty(p)
 
     def update_normals_batch(self, ids, level_scales: np.ndarray):
         """Vectorized update_normal_and_depth over M points (one fancy-indexed
@@ -463,6 +478,7 @@ class MapStore:
         sf = level_scales[np.clip(oct_, 0, len(level_scales) - 1)]
         self.point_max_dist[ids] = dist * sf
         self.point_min_dist[ids] = self.point_max_dist[ids] / level_scales[-1]
+        self.mark_dirty(ids)
 
     # --------------------------------------------------------- covisibility
     def update_connections(self, k: int):

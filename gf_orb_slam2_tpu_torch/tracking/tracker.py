@@ -17,13 +17,18 @@ Stage → reference mapping:
   frustum-check the local-map candidate pool, projection-match the unmatched
   keypoints, re-optimize, final inlier gate.
 - `fused_track`    = motion_step + local_step chained without a host visit.
+- `stream_step`    = fused_track with the pose prediction and the last
+  frame's matches chained on the device from the previous step, and the
+  candidate pool gathered by id from the device map mirror (the pipelined
+  driver, System.track_stereo_pipelined).
 - KF policy        ← NeedNewKeyFrame/CreateNewKeyFrame (Tracking.cc:1914/2008).
 - Stereo bootstrap ← StereoInitialization (Tracking.cc:1078).
 - Velocity model   ← mVelocity update (Tracking.cc:796).
 
 Not part of this package yet: relocalization (a LOST tracker stays LOST
 until the System resets it), monocular initialization, the ChArUco anchor,
-hashed local maps, planner odometry and the streaming (device-chained) step.
+hashed local maps, planner odometry and the map rebase after a loop
+correction.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from gf_orb_slam2_tpu_torch.selection import good_feature, observability
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking import projection
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
-from gf_orb_slam2_tpu_torch.utils.transfer import desc_to_torch, to_host
+from gf_orb_slam2_tpu_torch.utils.transfer import desc_to_torch, to_device, to_host
 
 
 class TrackState(enum.Enum):
@@ -291,6 +296,112 @@ def fused_track(
     return res_m, kp_row_m, res_l, kp_row_l, kp_row_add, n_vis
 
 
+def _search_radius(cfg: SystemConfig) -> float:
+    return 7.0 if cfg.sensor != Sensor.MONOCULAR else 15.0
+
+
+def chain_to_device(host: dict, device) -> dict:
+    """A chain of host arrays (R1/t1: pose of the last frame, R2/t2: of the
+    one before; per keypoint of the last frame: its map point's position,
+    octave, validity, descriptor words and id, -1 where none) → the
+    tensors `stream_step` takes, in one upload."""
+    arrays = dict(
+        R1=np.asarray(host["R1"], np.float32), t1=np.asarray(host["t1"], np.float32),
+        R2=np.asarray(host["R2"], np.float32), t2=np.asarray(host["t2"], np.float32),
+        pt_pos=np.asarray(host["pt_pos"], np.float32),
+        pt_oct=np.asarray(host["pt_oct"], np.int32),
+        pt_valid=np.asarray(host["pt_valid"], bool),
+        pt_desc=np.asarray(host["pt_desc"], np.uint32),
+        pt_ids=np.asarray(host["pt_ids"], np.int64))
+    return to_device(arrays, device)
+
+
+def _first_claim(claimed_ids, ids):
+    """Of `ids` (-1 = none), those not already in `claimed_ids` (-1 = none):
+    a sort of the claimed ids and a binary search, all on the device. The
+    empty slots sort last as the largest int64, never as -1."""
+    big = torch.iinfo(torch.int64).max
+    claimed = torch.sort(torch.where(claimed_ids >= 0, claimed_ids, big)).values
+    j = torch.clamp(torch.searchsorted(claimed, ids), max=claimed.shape[0] - 1)
+    return (ids >= 0) & (claimed[j] != ids)
+
+
+def gather_pool(mirror: dict, pool_ids):
+    """Candidate-pool rows from the device map mirror by point id: pool_ids
+    [L] int64, -1 for an empty slot. Returns (dict of [L,...] rows keyed by
+    the mirror's fields, valid [L]). An empty slot reads row 0 — the index
+    is clamped, never wrapped to the last row — and is invalid."""
+    c = torch.clamp(pool_ids, min=0)
+    return {k: v[c] for k, v in mirror.items()}, pool_ids >= 0
+
+
+def stream_step(cfg: SystemConfig, scales, upload, frontend_out, chain, mirror,
+                generator=None):
+    """One pipelined tracking step, with nothing read back to the host.
+
+    The pose prediction and the previous frame's matches arrive as the
+    `chain` the previous step returned, so consecutive frames' steps queue
+    on the device while the host completes results a few frames behind (the
+    reference overlaps its tracking thread's stages instead, Tracking.cc:594).
+    The local candidate pool comes from the device `mirror` (fields of
+    slammap/device_mirror.py) by id: `upload["pool_ids"]` [L] int64 with -1
+    for an empty slot, and `upload["loc_life"]` [L] their lifetimes.
+    `frontend_out` holds the frame's tensors keyed by tracking.frame.HOST_FIELDS.
+
+    Returns (out, next_chain): `out` holds the frontend tensors, the motion
+    and local matches (`kp_row_m`, `kp_row_l`) and inlier masks, the combined
+    per-keypoint map ids `mp` (motion matches first, then local matches not
+    already claimed, outliers cleared), the leftover-search ids `mp_extra`
+    that only the next frame's motion model uses, the pose `R`, `t`,
+    `n_inliers` and `n_vis`.
+    """
+    pool_ids = upload["pool_ids"]
+    loc, pool_ok = gather_pool(mirror, pool_ids)
+    R1, t1, R2, t2 = chain["R1"], chain["t1"], chain["R2"], chain["t2"]
+    # constant velocity: V = T1·T2⁻¹, prediction V·T1 (Tracker._predict_pose)
+    Rv = R1 @ R2.T
+    tv = t1 - Rv @ t2
+    R0 = Rv @ R1
+    t0 = Rv @ t1 + tv
+    f = frontend_out
+    res_m, kp_row_m, res_l, kp_row_l, kp_row_add, n_vis = fused_track(
+        cfg, scales, R0, t0, R1, t1,
+        chain["pt_pos"], chain["pt_oct"], chain["pt_valid"], chain["pt_desc"],
+        loc["pos"], loc["normal"], loc["mind"], loc["maxd"], loc["desc"], pool_ok,
+        upload["loc_life"],
+        f["uv"], f["octave"], f["u_right"], f["valid"], f["desc"],
+        _search_radius(cfg), 1.0, generator,
+    )
+    # association combine (the host _track_fused's, on the device)
+    ids_m = torch.where((kp_row_m >= 0) & res_m.inliers,
+                        chain["pt_ids"][torch.clamp(kp_row_m, min=0)], -1)
+    loc_g = torch.where(kp_row_l >= 0, pool_ids[torch.clamp(kp_row_l, min=0)], -1)
+    fill = (ids_m < 0) & _first_claim(ids_m, loc_g)
+    mp = torch.where(fill, loc_g, ids_m)
+    mp = torch.where((mp >= 0) & ~res_l.inliers, -1, mp)
+    # leftover-search matches enter the chain only (the host merges them
+    # after its keyframe decision)
+    add_g = torch.where(kp_row_add >= 0, pool_ids[torch.clamp(kp_row_add, min=0)], -1)
+    use_a = (mp < 0) & _first_claim(mp, add_g)
+    mp_chain = torch.where(use_a, add_g, mp)
+
+    def pick(from_chain, from_pool):
+        """Each keypoint's row from where its chained id came from."""
+        return torch.where(use_a[:, None], from_pool[torch.clamp(kp_row_add, min=0)],
+                           torch.where(fill[:, None], from_pool[torch.clamp(kp_row_l, min=0)],
+                                       from_chain[torch.clamp(kp_row_m, min=0)]))
+
+    next_chain = dict(
+        R1=res_l.R, t1=res_l.t, R2=R1, t2=t1,
+        pt_pos=pick(chain["pt_pos"], loc["pos"]), pt_oct=f["octave"],
+        pt_valid=mp_chain >= 0, pt_desc=pick(chain["pt_desc"], loc["desc"]),
+        pt_ids=mp_chain)
+    out = dict(f, kp_row_m=kp_row_m, m_inl=res_m.inliers, kp_row_l=kp_row_l,
+               l_inl=res_l.inliers, mp=mp, mp_extra=torch.where(use_a, add_g, -1),
+               R=res_l.R, t=res_l.t, n_inliers=res_l.n_inliers, n_vis=n_vis)
+    return out, next_chain
+
+
 # ====================================================== host orchestration
 class Tracker:
     def __init__(self, cfg: SystemConfig, store: MapStore, n_kp: int,
@@ -313,8 +424,9 @@ class Tracker:
         self.n_lost = 0
         self.relative_poses: list = []  # (frame_id, ts, T_c_refkf, ref_kf, state)
         self.stats: list = []
-        self._cached_pool = None  # (ids, device loc tensors) for the fused path
+        self._cached_pool = None  # (ids, host pool arrays) for the fused paths
         self._pool_stale_frames = 0
+        self._chain = None  # device chain of the pipelined path (stream_step)
 
     # ---------------------------------------------------------- transfers
     def _up(self, a):
@@ -455,7 +567,7 @@ class Tracker:
 
     @property
     def _search_radius(self) -> float:
-        return 7.0 if self.cfg.sensor != Sensor.MONOCULAR else 15.0
+        return _search_radius(self.cfg)
 
     def _track_with_motion_model(self, frame: Frame, st: TrackStats) -> bool:
         lf = self.last_frame
@@ -544,7 +656,9 @@ class Tracker:
             return
         self._pool_stale_frames = 0
         pts = pts[: self.cfg.capacity.max_local_points]
-        self._cached_pool = (pts, tuple(self._up(a) for a in self._pool_arrays(pts)))
+        # kept on the host: the synchronous fused step uploads it in one
+        # copy, the pipelined step uploads only its ids and lifetimes
+        self._cached_pool = (pts, self._pool_arrays(pts))
 
     def _track_fused(self, frame: Frame, st: TrackStats) -> bool:
         """One-synchronization tracking: motion + local map chained on the
@@ -555,6 +669,7 @@ class Tracker:
         ids, rows, pt_pos, pt_desc, pt_oct = self._last_frame_points()
         R0, t0 = self._predict_pose()
         kp = self._frame_dev(frame)
+        loc = to_device(dict(enumerate(loc)), self.device).values()
         res_m, kp_row_m, res_l, kp_row_l, kp_row_add, _ = fused_track(
             self.cfg, self._scales_dev,
             self._up(R0), self._up(t0), self._up(lf.R), self._up(lf.t),
@@ -599,6 +714,101 @@ class Tracker:
         s.point_found[tracked] += 1
         s.point_visible[pool_ids] += 1
         return int(d["n_inliers"]) >= self.cfg.tracking.min_inliers_local_map
+
+    # ---------------------------------------------------- pipelined path
+    def stream_ready(self) -> bool:
+        """Streaming needs an OK track, a velocity estimate, a pool and a
+        last frame with host arrays."""
+        return (self.state == TrackState.OK and self.velocity is not None
+                and self._cached_pool is not None
+                and self.last_frame is not None
+                and self.last_frame.uv is not None)
+
+    def stream_prepare_upload(self, frame_id: int):
+        """The host part of a streamed frame's upload: the (one frame stale)
+        pool's ids, -1 past its end, and lifetimes — point data comes from
+        the device mirror. Returns (arrays, pool_ids)."""
+        pool_ids, loc = self._cached_pool
+        ids = np.full(self.cfg.capacity.max_local_points, -1, np.int64)
+        ids[: pool_ids.size] = pool_ids
+        return dict(pool_ids=ids, loc_life=loc[6]), pool_ids
+
+    def stream_bootstrap_chain(self) -> dict:
+        """The device chain from the last synchronously tracked frame, in one
+        upload; afterwards the chain never visits the host."""
+        lf = self.last_frame
+        s = self.store
+        with s.lock:
+            ids = s.resolve_replaced(lf.mp_ids)
+            rows = ids >= 0
+            pt_pos = np.zeros((self.n_kp, 3), np.float32)
+            pt_desc = np.zeros((self.n_kp, 8), np.uint32)
+            pt_pos[rows] = s.point_pos[ids[rows]]
+            pt_desc[rows] = s.point_desc[ids[rows]]
+        T1 = lf.pose_matrix()
+        V = self.velocity
+        Vinv = np.eye(4, dtype=np.float32)
+        Vinv[:3, :3] = V[:3, :3].T
+        Vinv[:3, 3] = -V[:3, :3].T @ V[:3, 3]
+        T2 = (Vinv @ T1).astype(np.float32)
+        return chain_to_device(dict(
+            R1=T1[:3, :3], t1=T1[:3, 3], R2=T2[:3, :3], t2=T2[:3, 3],
+            pt_pos=pt_pos, pt_oct=lf.octave, pt_valid=rows, pt_desc=pt_desc,
+            pt_ids=np.where(rows, ids, -1)), self.device)
+
+    def stream_dispatch(self, frontend_out: dict, upload: dict, frame_id: int) -> dict:
+        """Enqueue one streaming step against the store's device mirror and
+        advance the chain; returns the step's output tensors."""
+        out, self._chain = stream_step(
+            self.cfg, self._scales_dev, upload, frontend_out, self._chain,
+            self.store.mirror.arrays, self._seeded(frame_id))
+        return out
+
+    def stream_complete(self, frame: Frame, d: dict, pool_ids) -> TrackStats:
+        """Host bookkeeping of a streamed frame from its downloaded results
+        (`_track_fused`'s part after the download plus `process_frame`'s OK
+        branch). Runs under store.lock: it races the mapping worker."""
+        with self.store.lock:
+            return self._stream_complete_locked(frame, d, pool_ids)
+
+    def _stream_complete_locked(self, frame: Frame, d: dict, pool_ids) -> TrackStats:
+        s = self.store
+        st = TrackStats(frame_id=frame.frame_id, path="stream")
+        if frame.uv is None:
+            frame.fill_host(d)
+        # ids from the device may be stale (points replaced or culled since
+        # the pool was gathered): resolve them against the store now
+        mp = s.resolve_replaced(d["mp"])
+        frame.mp_ids = mp.astype(np.int32)
+        frame.is_outlier = np.zeros(self.n_kp, bool)
+        frame.R = d["R"]
+        frame.t = d["t"]
+        st.n_motion_matches = int((d["kp_row_m"] >= 0).sum())
+        st.n_local_points = int(pool_ids.size)
+        st.n_local_matches = int((d["kp_row_l"] >= 0).sum())
+        tracked = frame.mp_ids[frame.mp_ids >= 0]
+        s.point_found[tracked] += 1
+        s.point_visible[pool_ids] += 1
+        if int(d["n_inliers"]) >= self.cfg.tracking.min_inliers_local_map:
+            self.state = TrackState.OK
+            self.n_lost = 0
+            self._refresh_cached_pool(frame)
+            self._update_velocity(frame)
+            if self._need_new_keyframe(frame):
+                self._create_keyframe(frame)
+                st.created_kf = True
+            frame._extra_assign = s.resolve_replaced(d["mp_extra"])
+            self._merge_additional_matches(frame)
+        else:
+            self.state = TrackState.LOST
+            self.n_lost += 1
+            self.velocity = None
+            self._chain = None
+        st.state = self.state.name
+        st.n_features = frame.n_kp
+        st.n_inliers = frame.n_matched
+        self._finish_frame(frame, st)
+        return st
 
     def _gather_local_map(self, frame: Frame):
         """Local map = KFs sharing points with the frame (K1) + their best

@@ -7,24 +7,44 @@ import numpy as np
 import torch
 
 
-def to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Download a dict of tensors as numpy arrays. CUDA tensors are copied
-    asynchronously into pinned buffers and the stream is synchronized ONCE
-    for the whole batch; CPU tensors are viewed in place."""
-    out = {}
-    pending = False
+class PendingHost:
+    """Downloads enqueued by `to_host_async`: `wait()` blocks until they have
+    landed and returns the numpy arrays."""
+
+    def __init__(self, bufs: Dict[str, torch.Tensor], event):
+        self._bufs = bufs
+        self._event = event
+
+    def wait(self) -> Dict[str, np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return {k: v.numpy() for k, v in self._bufs.items()}
+
+
+def to_host_async(tensors: Dict[str, torch.Tensor]) -> PendingHost:
+    """Enqueue the download of a dict of tensors without waiting for it: CUDA
+    tensors are copied non-blocking into pinned buffers on the current stream
+    and one CUDA event is recorded after the copies (the stream's later work
+    does not delay them). CPU tensors are viewed in place."""
+    bufs = {}
     for k, v in tensors.items():
         v = v.detach()
         if v.is_cuda:
-            buf = torch.empty(v.shape, dtype=v.dtype, device="cpu", pin_memory=True)
-            buf.copy_(v, non_blocking=True)
-            out[k] = buf
-            pending = True
+            bufs[k] = torch.empty(v.shape, dtype=v.dtype, device="cpu", pin_memory=True)
+            bufs[k].copy_(v, non_blocking=True)
         else:
-            out[k] = v
-    if pending:
-        torch.cuda.current_stream().synchronize()
-    return {k: v.numpy() for k, v in out.items()}
+            bufs[k] = v
+    event = None
+    if any(v.is_cuda for v in tensors.values()):
+        event = torch.cuda.Event()
+        event.record()
+    return PendingHost(bufs, event)
+
+
+def to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Download a dict of tensors as numpy arrays with ONE wait for the
+    whole batch (`to_host_async` + `wait`); CPU tensors are viewed in place."""
+    return to_host_async(tensors).wait()
 
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,

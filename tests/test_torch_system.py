@@ -158,6 +158,8 @@ def test_default_device_raises_without_cuda():
         pytest.skip("a CUDA device is present: the default device constructs")
     with pytest.raises(RuntimeError, match="CUDA"):
         System(_small_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(_small_config().replace(tracking=tconfig.TrackingConfig(async_mapping=True)))
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
@@ -178,7 +180,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "gf_orb_slam2_tpu_torch.mapping.batch_ops, gf_orb_slam2_tpu_torch.optim.local_ba, "
         "gf_orb_slam2_tpu_torch.selection.good_graph, "
         "gf_orb_slam2_tpu_torch.selection.anticipation, "
-        "gf_orb_slam2_tpu_torch.geometry.triangulate, gf_orb_slam2_tpu_torch.utils.linalg3\n"
+        "gf_orb_slam2_tpu_torch.geometry.triangulate, gf_orb_slam2_tpu_torch.utils.linalg3, "
+        "gf_orb_slam2_tpu_torch.slammap.device_mirror\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'gf_orb_slam2_tpu')]\n"
         "assert not bad, bad\n"
@@ -205,13 +208,19 @@ def _repo_root():
 
 
 def test_unported_options_raise_instead_of_misbehaving():
+    """Options of parts not ported raise; asynchronous mapping is ported and
+    constructs (its worker starts with the first keyframe event)."""
     cfg = _small_config()
     with pytest.raises(NotImplementedError):
         System(cfg.replace(hashing=tconfig.HashingConfig(enabled=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="loop closing"):
         System(cfg.replace(loop=tconfig.LoopClosingConfig()), device="cpu")
-    with pytest.raises(NotImplementedError, match="asynchronous mapping"):
-        System(cfg.replace(tracking=tconfig.TrackingConfig(async_mapping=True)), device="cpu")
+    with pytest.raises(NotImplementedError, match="loop closing"):
+        System(cfg.replace(loop=tconfig.LoopClosingConfig(),
+                           tracking=tconfig.TrackingConfig(async_mapping=True)), device="cpu")
+    slam = System(cfg.replace(tracking=tconfig.TrackingConfig(async_mapping=True)), device="cpu")
+    assert slam.cfg.tracking.async_mapping and slam._map_worker is None
+    slam.shutdown()
     with pytest.raises(AssertionError):
         System(cfg.replace(sensor=tconfig.Sensor.MONOCULAR), device="cpu").track_stereo(
             np.zeros((H, W), np.uint8), np.zeros((H, W), np.uint8), 0.0)

@@ -454,7 +454,18 @@ def carried():
     packed, (ids, pool_ids) = tr.prepare_fused_host_inputs(3 / 20.0, 3)
     inputs = tr._up_layout.unpack_np(packed)
     front = [np.asarray(a) for a in js._get_frontend("stereo")(jnp.asarray(imgs[3]))]
-    yield dict(js=js, jcfg=jcfg, inputs=inputs, front=front, imgs=imgs, pool_ids=pool_ids)
+    # the pipelined path's state after the third frame: the bootstrapped
+    # chain, the fourth frame's upload, and the map mirrored from the store
+    # (the JAX mirror's CPU full-refresh path), taken before a later test
+    # moves the JAX system on
+    from gf_orb_slam2_tpu.slammap.device_mirror import DeviceMapMirror
+
+    up_packed, _ = tr.stream_prepare_upload(3)
+    stream = dict(chain={k: np.asarray(v) for k, v in tr.stream_bootstrap_chain().items()},
+                  upload=tr._stream_up_layout.unpack_np(up_packed), up_packed=up_packed,
+                  mirror=DeviceMapMirror(js.store).arrays, store=convert.store_arrays(js.store))
+    yield dict(js=js, jcfg=jcfg, inputs=inputs, front=front, imgs=imgs, pool_ids=pool_ids,
+               stream=stream)
     js.shutdown()
 
 
@@ -520,8 +531,8 @@ def test_process_frame_parity_on_carried_map(carried):
     # frame (gathered before that frame's keyframe added points)
     u = carried["inputs"]
     tr._cached_pool = (carried["pool_ids"], tuple(
-        T(u[k]) for k in ("loc_pos", "loc_normal", "loc_mind", "loc_maxd",
-                          "loc_desc", "loc_valid", "loc_life")))
+        u[k] for k in ("loc_pos", "loc_normal", "loc_mind", "loc_maxd",
+                       "loc_desc", "loc_valid", "loc_life")))
     frame = convert.frame_from_arrays(dict(
         frame_id=3, timestamp=3 / 20.0, uv=uv, octave=octv, angle=ang, desc=desc,
         response=resp, u_right=ur, depth=dep, valid=val))
@@ -576,3 +587,109 @@ def test_fused_step_good_feature_branch(carried):
     assert abs(i_g - i_w) <= 0.05 * i_w + 2
     np.testing.assert_allclose(g_res_l.R.numpy(), np.asarray(w_res_l.R), atol=2e-3)
     np.testing.assert_allclose(g_res_l.t.numpy(), np.asarray(w_res_l.t), atol=2e-3)
+
+
+# ------------------------------------------ streaming step on the carried map
+def _jax_stream_step(jtr, carried):
+    """The JAX streaming step on the carried state; also returns the local
+    stage's inlier mask, which its packed output does not hold."""
+    c = carried["stream"]
+
+    def run(upload, front, chain, mirror):
+        box = {}
+        impl = jtr._fused_track_impl
+
+        def spy(*a):
+            out = impl(*a)
+            box["l_inl"] = out[2].inliers
+            return out
+
+        jtr._fused_track_impl = spy
+        try:
+            packed, next_chain = jtr._stream_step_impl(upload, *front, chain, mirror)
+        finally:
+            del jtr._fused_track_impl
+        return packed, next_chain, box["l_inl"]
+
+    packed, next_chain, l_inl = jax.jit(run)(
+        J(c["up_packed"]), [J(a) for a in carried["front"]],
+        {k: J(v) for k, v in c["chain"].items()}, c["mirror"])
+    out = jtr._stream_out_layout.unpack_np(np.asarray(packed))
+    out["l_inl"] = np.asarray(l_inl)
+    return out, {k: np.asarray(v) for k, v in next_chain.items()}
+
+
+def _port_stream_step(carried, tcfg):
+    """The port's stream_step on the same state carried through convert.py:
+    the chain from the JAX chain's arrays, the mirror from the store's."""
+    c = carried["stream"]
+    store = convert.store_with_mirror(tcfg.capacity, 640, c["store"], device="cpu")
+    chain = convert.chain_from_arrays(c["chain"], "cpu")
+    upload = dict(pool_ids=T(c["upload"]["pool_ids"].astype(np.int64)),
+                  loc_life=T(c["upload"]["loc_life"]))
+    front = dict(zip(ttracker.HOST_FIELDS, (T(a) for a in carried["front"])))
+    scales = np.asarray(carried["js"].extractor.scales, np.float32)
+    out, next_chain = ttracker.stream_step(
+        tcfg, T(scales), upload, front, chain, store.mirror.arrays,
+        torch.Generator().manual_seed(int(c["upload"]["seed"])))
+    return ({k: v.numpy() for k, v in out.items()},
+            {k: v.numpy() for k, v in next_chain.items()}, chain)
+
+
+def test_stream_step_parity_on_carried_map(carried):
+    """LONG_LIVED budget (integer scores): every integer output and the next
+    chain's ids, validity, octaves and descriptors equal; poses to 1e-3; the
+    chain's older pose is the carried last pose, bit for bit."""
+    js = carried["js"]
+    want, w_next = _jax_stream_step(js.tracker, carried)
+    tcfg = convert.config_from_reference(carried["jcfg"])
+    got, g_next, chain_in = _port_stream_step(carried, tcfg)
+    assert (want["mp"] >= 0).sum() > 100 and (want["kp_row_l"] >= 0).sum() > 10
+    assert (want["mp_extra"] >= 0).sum() + (want["kp_row_m"] >= 0).sum() > 0
+    for k in ("mp", "mp_extra", "kp_row_m", "kp_row_l", "m_inl", "l_inl", "n_inliers", "n_vis"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("pt_ids", "pt_valid", "pt_oct"):
+        np.testing.assert_array_equal(g_next[k], w_next[k], err_msg=k)
+    np.testing.assert_array_equal(g_next["pt_desc"], w_next["pt_desc"].view(np.int32))
+    np.testing.assert_array_equal(g_next["pt_pos"], w_next["pt_pos"])
+    for k, w in (("R", want["R"]), ("t", want["t"]), ("R1", w_next["R1"]), ("t1", w_next["t1"])):
+        np.testing.assert_allclose(got[k] if k in got else g_next[k], w, atol=1e-3, err_msg=k)
+    np.testing.assert_array_equal(g_next["R2"], chain_in["R1"].numpy())
+    np.testing.assert_array_equal(g_next["t2"], chain_in["t1"].numpy())
+    np.testing.assert_array_equal(g_next["R2"], w_next["R2"])
+
+
+def test_stream_step_good_feature_branch(carried):
+    """Max-logDet selection on (lazier_factor=10), held as
+    test_fused_step_good_feature_branch holds the fused step: the motion
+    stage exact, the same visibility count, the budget respected, local and
+    leftover match counts within 15 %, inliers within 5 %, pose to 2e-3; the
+    chain is consistent with the combined ids."""
+    from gf_orb_slam2_tpu.tracking.tracker import Tracker as JTracker
+
+    js = carried["js"]
+    jcfg = carried["jcfg"].replace(good_feature=jconfig.GoodFeatureConfig(
+        constr_per_frame=80, min_pool=100))
+    scales = np.asarray(js.extractor.scales, np.float32)
+    want, w_next = _jax_stream_step(JTracker(jcfg, js.store, 640, scales), carried)
+    got, g_next, chain_in = _port_stream_step(carried, convert.config_from_reference(jcfg))
+    for k in ("kp_row_m", "m_inl"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(got["n_vis"]) == int(want["n_vis"]) >= 100
+    n_w, n_g = int((want["kp_row_l"] >= 0).sum()), int((got["kp_row_l"] >= 0).sum())
+    a_w, a_g = int((want["mp_extra"] >= 0).sum()), int((got["mp_extra"] >= 0).sum())
+    i_w, i_g = int(want["n_inliers"]), int(got["n_inliers"])
+    print(f"local {n_w}/{n_g} leftover-in-chain {a_w}/{a_g} inliers {i_w}/{i_g}")
+    assert 0 < n_g <= 80 and abs(n_g - n_w) <= 0.15 * n_w + 3
+    assert abs(a_g - a_w) <= 0.15 * a_w + 3
+    assert abs(i_g - i_w) <= 0.05 * i_w + 2
+    np.testing.assert_allclose(got["R"], want["R"], atol=2e-3)
+    np.testing.assert_allclose(got["t"], want["t"], atol=2e-3)
+    # the chain carries the combined ids, then the leftover ids, each once
+    ids = np.where(got["mp"] >= 0, got["mp"], got["mp_extra"])
+    np.testing.assert_array_equal(g_next["pt_ids"], ids)
+    np.testing.assert_array_equal(g_next["pt_valid"], ids >= 0)
+    live = ids[ids >= 0]
+    assert live.size == np.unique(live).size
+    np.testing.assert_array_equal(g_next["R2"], chain_in["R1"].numpy())
+    np.testing.assert_array_equal(g_next["t2"], chain_in["t1"].numpy())

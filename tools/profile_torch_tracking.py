@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a frame's time goes in the PyTorch/CUDA port (one NVIDIA GPU).
 
-    python3 tools/profile_torch_tracking.py [--frames 30] [--map-frames 60] [--out DIR]
+    python3 tools/profile_torch_tracking.py [--frames 30] [--map-frames 60]
+                                            [--pipelined 24] [--out DIR]
 
 Drives `System.track_stereo` at the headline stereo configuration on the
 rendered room tour (the scene of chip_smoke.py), local mapping on, and
@@ -16,7 +17,14 @@ reports, for the steady frames after the warm-up:
 - then, over the next `--map-frames` frames, the mapper's stages per keyframe
   event (map.refresh, map.triangulate_fuse, map.local_ba, map.cull): each
   stage call runs under its own `torch.profiler` window, giving its wall
-  milliseconds, its device kernels and its device-busy share.
+  milliseconds, its device kernels and its device-busy share;
+- with `--pipelined N` (N > 0), bench.py's driver on a second System with
+  the asynchronous mapping worker: frames 0-15 through `track_stereo`, then
+  `track_stereo_pipelined` up to frame 40, then a `torch.profiler` window over
+  the next N calls — host ms per call, device-busy share, device kernels and
+  kernel launches per call by thread (tracking thread, mapping worker), the
+  Hamming launches by thread, and the driver's mirror sync, dispatch and
+  completion ms.
 
 Prints one JSON object (also written to <out>/profile_torch_tracking.json)
 with the card's name and power limit beside the numbers.
@@ -90,7 +98,16 @@ def _device_us(e):
 
 
 def _is_kernel(e):
-    return getattr(e, "device_type", None) is not None and "cuda" in str(e.device_type).lower()
+    """A device activity (kernel, copy, set) — not a host operator, whose
+    device time repeats its kernels', nor a user annotation's span."""
+    return ("cuda" in str(getattr(e, "device_type", "")).lower()
+            and not getattr(e, "is_user_annotation", False))
+
+
+def _device_ms(events):
+    """Device-busy milliseconds of a profiler window, as torch's own table
+    totals them: the device activities only."""
+    return sum(_device_us(e) for e in events if _is_kernel(e)) / 1e3
 
 
 def profile_mapper_stages(slam, imgs, start, stop):
@@ -112,7 +129,7 @@ def profile_mapper_stages(slam, imgs, start, stop):
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
             ka = prof.key_averages()
-            dev = sum(_device_us(e) for e in ka) / 1e3
+            dev = _device_ms(ka)
             records[_label].append({"ms": wall, "kernels": sum(e.count for e in ka if _is_kernel(e)),
                                     "device_ms": dev})
             return out
@@ -136,10 +153,105 @@ def profile_mapper_stages(slam, imgs, start, stop):
     return out
 
 
+def profile_pipelined(imgs, n_calls):
+    """bench.py's driver with the mapping worker; a profiler window over
+    `n_calls` pipelined calls from frame 40 on."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror
+    from gf_orb_slam2_tpu_torch.system import MAPPING_THREAD
+
+    slam = System(chip_smoke.headline_config(async_mapping=True))
+    for i in range(16):
+        slam.track_stereo(imgs[i][0], imgs[i][1], i / 20.0)
+    start = 40
+    for i in range(16, start):
+        slam.track_stereo_pipelined(imgs[i][0], imgs[i][1], i / 20.0)
+    timers = collections.defaultdict(list)
+
+    def labelled(fn, label):
+        def run(*a, **k):
+            with record_function(label):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    timers[label].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    orig_sync, orig_event = DeviceMapMirror.sync, LocalMapper.process_keyframe
+    DeviceMapMirror.sync = labelled(orig_sync, "driver.mirror_sync")
+    LocalMapper.process_keyframe = labelled(orig_event, "mapping.event")
+    slam._dispatch_stream = labelled(slam._dispatch_stream, "driver.dispatch")
+    slam._complete_one = labelled(slam._complete_one, "driver.complete")
+    stop = start + n_calls
+    hamming_cuda.reset_launch_counts()
+    n_events0 = len(slam.mapper.stats)
+    call_ms = []
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(start, stop):
+                t1 = time.perf_counter()
+                slam.track_stereo_pipelined(imgs[i][0], imgs[i][1], i / 20.0)
+                call_ms.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        DeviceMapMirror.sync, LocalMapper.process_keyframe = orig_sync, orig_event
+    launches = {"tracking": hamming_cuda.thread_launch_counts("MainThread"),
+                "mapping": hamming_cuda.thread_launch_counts(MAPPING_THREAD)}
+    events = prof.events()
+    thread_of = {}
+    for e in events:
+        if e.name in ("driver.dispatch", "mapping.event"):
+            thread_of.setdefault(e.name, e.thread)
+    by_thread = collections.Counter(e.thread for e in events
+                                    if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                  "cudaLaunchKernelExC"))
+    tracking = by_thread.get(thread_of.get("driver.dispatch"), 0)
+    ka = prof.key_averages()
+    device_ms = _device_ms(ka)
+    n_kernels = sum(e.count for e in ka if _is_kernel(e))
+    slam.flush_pipeline()
+    w = slam._map_worker
+    out = {
+        "calls": n_calls, "first_frame": start,
+        "keyframe_events": len(slam.mapper.stats) - n_events0,
+        "call_ms_median": statistics.median(call_ms), "call_ms_mean": statistics.fmean(call_ms),
+        "wall_ms_per_call": wall_ms / n_calls,
+        "device_busy_ms_per_call": device_ms / n_calls,
+        "device_busy_share": device_ms / wall_ms,
+        "device_kernels_per_call": n_kernels / n_calls,
+        # the profiler may record host-side events of the tracking thread
+        # only: the mapping worker's launches are then the device kernels
+        # the tracking thread did not launch
+        "kernel_launches_per_call_by_thread": {
+            "tracking": tracking / n_calls,
+            "mapping": (by_thread[thread_of["mapping.event"]] if "mapping.event" in thread_of
+                        else n_kernels - tracking) / n_calls,
+            "mapping_counted_from": "host events" if "mapping.event" in thread_of
+            else "device kernels not launched by the tracking thread"},
+        "hamming_launches_per_call": {t: {k: v / n_calls for k, v in c.items()}
+                                      for t, c in launches.items()},
+        "driver_ms": {k: {"median": statistics.median(v), "max": max(v), "n": len(v)}
+                      for k, v in sorted(timers.items())},
+        "n_ba_runs": w.n_ba_runs if w else 0, "n_ba_merged": w.n_ba_merged if w else 0,
+        "top_by_device_time": [
+            {"name": e.key[:60], "calls_per_call": e.count / n_calls,
+             "device_ms_per_call": _device_us(e) / 1e3 / n_calls}
+            for e in sorted((e for e in ka if _is_kernel(e)), key=_device_us, reverse=True)[:12]],
+    }
+    slam.shutdown()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--map-frames", type=int, default=60)
+    ap.add_argument("--pipelined", type=int, default=24,
+                    help="pipelined calls in the profiler window (0: skip)")
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -149,7 +261,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     hamming_cuda.load()
-    imgs = render(n + args.map_frames)
+    imgs = render(max(n + args.map_frames, 40 + args.pipelined))
     slam = System(chip_smoke.headline_config())
     third = (n - 8) // 3
     a, b, c = 8, 8 + third, 8 + 2 * third
@@ -195,9 +307,9 @@ def main():
 
     dev_us = _device_us
     kernels = [e for e in ka if _is_kernel(e)]
-    device_ms = sum(dev_us(e) for e in ka) / 1e3
+    device_ms = _device_ms(ka)
     n_kernels = sum(e.count for e in kernels)
-    top_dev = sorted(ka, key=dev_us, reverse=True)[:12]
+    top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
     top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     mapping = profile_mapper_stages(slam, imgs, n, n + args.map_frames)
     out = {
@@ -209,6 +321,9 @@ def main():
             "frames": n_prof, "wall_ms_per_frame": wall_ms / n_prof,
             "device_busy_ms_per_frame": device_ms / n_prof,
             "device_busy_share": device_ms / wall_ms,
+            # the profiler slows the host several times over: the share of an
+            # unprofiled frame is the one a user's frame has
+            "device_busy_share_of_plain_frame": device_ms / n_prof / statistics.median(plain_ms),
             "device_kernels_per_frame": n_kernels / n_prof,
             "hamming_launches_per_frame":
                 {k: v / n_prof for k, v in hamming_cuda.launch_counts.items()},
@@ -220,6 +335,7 @@ def main():
                  "host_ms_per_frame": e.self_cpu_time_total / 1e3 / n_prof} for e in top_cpu],
         },
         "mapping": mapping,
+        "pipelined": profile_pipelined(imgs, args.pipelined) if args.pipelined > 0 else None,
     }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_torch_tracking.json"), "w") as f:
