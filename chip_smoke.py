@@ -24,14 +24,27 @@ the store, and that dispatching a streamed frame never synchronizes with the
 device. Last, it times the best-2 kernel on the masks of the synchronous
 run's last frame and of its last keyframe event's triangulation and fusion
 searches, and solves that event's local BA problem on the card against the
-same problem on the CPU, plainly and through good-graph selection. Each phase
-prints one JSON line; any failed phase ends the run with a non-zero exit
-code. The last line is {"ok": true, "device": {...}} and is printed only if
-every phase passed.
+same problem on the CPU, plainly and through good-graph selection. The
+pipelined run uses bench.py's whole configuration: loop closing on, with its
+own loop worker thread and the detached global BA.
+
+Phase `loop` drives loop closing on the rendered loop circuit of the JAX
+package's gate (tests/test_loop_rendered.py: 140 frames, 1.27 turns, the
+synchronous entry with the global BA inline) once with loop closing and once
+without: a loop must be corrected and fused, the recomposed trajectory must
+beat 0.15 m and 0.75 of the loop-off run, and the loop closer must have
+launched both kernels. Its Sim3 guided search and search-and-fuse masks join
+phase `path_masks`; phase `loop_solvers` solves its last essential graph and
+global BA window on the card against the same problems on the CPU.
+
+Each phase prints one JSON line; any failed phase ends the run with a
+non-zero exit code. The last line is {"ok": true, "device": {...}} and is
+printed only if every phase passed.
 
 Needs a CUDA device and `nvcc`; imports torch and numpy (and OpenCV through
 the renderer), never JAX.
 """
+import dataclasses
 import importlib.util
 import json
 import os
@@ -52,14 +65,19 @@ from gf_orb_slam2_tpu_torch.config import (  # noqa: E402
     LoopClosingConfig, ORBConfig, Sensor, SystemConfig, TrackingConfig,
 )
 from gf_orb_slam2_tpu_torch.io.evaluation import ate_rmse  # noqa: E402
+from gf_orb_slam2_tpu_torch.io.trajectory import recompose_trajectory  # noqa: E402
+from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import GBA_THREAD, STAGES  # noqa: E402
+from gf_orb_slam2_tpu_torch.loopclosing.sim3solver import optimize_sim3, solve_sim3  # noqa: E402
 from gf_orb_slam2_tpu_torch.mapping import local_mapping  # noqa: E402
 from gf_orb_slam2_tpu_torch.matching import hamming as hamming_mod  # noqa: E402
 from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
+from gf_orb_slam2_tpu_torch.optim import global_ba  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.local_ba import (  # noqa: E402
     LocalBAProblem, local_bundle_adjustment,
 )
+from gf_orb_slam2_tpu_torch.optim.pose_graph import PoseGraphProblem, optimize_pose_graph  # noqa: E402
 from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror  # noqa: E402
-from gf_orb_slam2_tpu_torch.system import MAPPING_THREAD, System  # noqa: E402
+from gf_orb_slam2_tpu_torch.system import LOOP_THREAD, MAPPING_THREAD, System  # noqa: E402
 from gf_orb_slam2_tpu_torch.utils.transfer import to_device  # noqa: E402
 
 
@@ -75,6 +93,7 @@ def _load_renderer():
 
 _renderer = _load_renderer()
 RoomWorld, trajectory_tour = _renderer.RoomWorld, _renderer.trajectory_tour
+trajectory_loop = _renderer.trajectory_loop
 
 # scene of the JAX package's headline benchmark (bench.py)
 FX = FY = 450.0
@@ -91,6 +110,11 @@ BENCH_WARM = 40   # bench.py: per-call times from this frame on
 GUARDED = 3       # last dispatches checked for host synchronization
 DEVICE = "cuda"
 BA_POSE_TOL, BA_COST_RTOL = 1e-3, 1e-3  # card against CPU, same BA problem
+# the JAX package's rendered loop gate (tests/test_loop_rendered.py)
+LOOP_FRAMES = 140
+LOOP_ATE_BOUND_M = 0.15
+LOOP_ATE_RATIO = 0.75  # loop on against loop off, same frames
+SIM3_TOL = 1e-4        # the Sim3 stage, card against CPU (tests/test_torch_sim3.py)
 
 # published peaks of one H100 SXM (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -373,9 +397,10 @@ def phase_kernels():
     return records
 
 
-def headline_config(async_mapping=False):
+def headline_config(async_mapping=False, loop=False):
     """bench.py's configuration; `async_mapping` selects its pipelined
-    driver's mapping worker (pipeline depth 3, the default)."""
+    driver's mapping worker (pipeline depth 3, the default), `loop` its
+    loop closing (bench.py's default: on, with the detached global BA)."""
     cam = CameraConfig(fx=FX, fy=FY, cx=CX, cy=CY, bf=BF, th_depth=40.0)
     return SystemConfig(
         sensor=Sensor.STEREO, camera=cam,
@@ -388,7 +413,7 @@ def headline_config(async_mapping=False):
             info_mat_size=7),
         tracking=TrackingConfig(pose_opt_rounds=3, pose_opt_iters=8,
                                 async_mapping=async_mapping, pipeline_depth=3),
-        loop=LoopClosingConfig(enabled=False),
+        loop=LoopClosingConfig(enabled=loop),
     )
 
 
@@ -587,16 +612,20 @@ def _mirror_stale_rows(store):
 
 
 def phase_pipelined(imgs, gt, sync_ate):
-    """bench.py's driver on the card: frames 0-15 through `track_stereo`,
-    16-149 through `track_stereo_pipelined` with the mapping worker
-    (`tracking.async_mapping`, pipeline depth 3), then `flush_pipeline()`.
+    """bench.py's driver on the card, with bench.py's whole configuration:
+    frames 0-15 through `track_stereo`, 16-149 through
+    `track_stereo_pipelined` with the mapping worker
+    (`tracking.async_mapping`, pipeline depth 3) and loop closing on (the
+    loop worker, the detached global BA), then `flush_pipeline()`.
     Per-call host ms over frames 40 onward (bench.py's window), as bench.py
     takes it: the call returns without waiting for the device. The last
     GUARDED dispatches run under `torch.cuda.set_sync_debug_mode("error")`
-    with the worker idle (the mode is process-wide): any host
+    with the workers and the GBA idle (the mode is process-wide): any host
     synchronization in the upload, mirror sync, frontend, stream step or
     download enqueue raises. Kernel launches are counted by thread."""
-    slam = System(headline_config(async_mapping=True), device=DEVICE)
+    slam = System(headline_config(async_mapping=True, loop=True), device=DEVICE)
+    if slam.loop_closer is None:
+        fail("bench.py's configuration built no loop closer")
     timers = {"mirror_sync": [], "dispatch": [], "complete": []}
     queue_depth, checked, guarded, sync_errors = [], [], [], []
 
@@ -616,6 +645,9 @@ def phase_pipelined(imgs, gt, sync_ate):
             return dispatch(*a)
         if slam._map_worker is not None:
             slam._map_worker.wait_idle()
+        if slam._loop_worker is not None:
+            slam._loop_worker.wait_idle()
+        slam.loop_closer.wait_gba()
         fid = slam.frame_id
         checked.append(fid)
         torch.cuda.set_sync_debug_mode("error")
@@ -664,7 +696,9 @@ def phase_pipelined(imgs, gt, sync_ate):
             note(fid, T)
         torch.cuda.synchronize()
         launches = {"tracking": hamming_cuda.thread_launch_counts("MainThread"),
-                    "mapping": hamming_cuda.thread_launch_counts(MAPPING_THREAD)}
+                    "mapping": hamming_cuda.thread_launch_counts(MAPPING_THREAD),
+                    "loop": hamming_cuda.thread_launch_counts(LOOP_THREAD),
+                    "gba": hamming_cuda.thread_launch_counts(GBA_THREAD)}
         stale, n_valid = _mirror_stale_rows(slam.store)
     finally:
         DeviceMapMirror.sync = orig_sync
@@ -673,6 +707,8 @@ def phase_pipelined(imgs, gt, sync_ate):
     n_stream = sum(s.path == "stream" and s.frame_id >= SYNC_FRAMES for s in stats)
     n_kf = sum(bool(s.created_kf) for s in stats)
     w = slam._map_worker
+    lw = slam._loop_worker
+    lstats = slam.loop_closer.stats
     times = [ms for i, ms in call_ms if i >= BENCH_WARM and i not in checked]
     common = sorted(est)
     ate = ate_rmse(np.stack([est[i] for i in common]), gt[common]) if common else float("nan")
@@ -697,6 +733,12 @@ def phase_pipelined(imgs, gt, sync_ate):
         "mapper_ms_total_per_event": spread([sum(e.values()) for e in slam.mapper.event_ms[1:]]),
         "guarded_dispatches": guarded, "guarded_dispatches_that_synchronized": len(sync_errors),
         "mirror_stale_rows": stale, "mirror_valid_rows": n_valid,
+        "loop_worker_events": lw.n_events if lw else 0, "loop_events": len(lstats),
+        "loop_warm_up_ms": slam.loop_warm_up_ms,
+        "loop_candidates": sum(st.n_candidates for st in lstats),
+        "loops_corrected": sum(st.corrected for st in lstats),
+        "loop_ms_per_event": {stage: spread([e[stage] for e in slam.loop_closer.event_ms])
+                              for stage in STAGES},
     }
     emit(rec)
     slam.shutdown()
@@ -710,6 +752,9 @@ def phase_pipelined(imgs, gt, sync_ate):
     if not (w and w.n_ba_runs + w.n_ba_merged == w.n_kf_events == n_kf):
         fail(f"BA accounting: runs {rec['n_ba_runs']} + merged {rec['n_ba_merged']}, "
              f"events {rec['n_kf_events']}, keyframes created {n_kf}")
+    if not (lw and lw.n_events == len(lstats) == w.n_kf_events):
+        fail(f"the loop worker processed {rec['loop_worker_events']} events "
+             f"({len(lstats)} in the loop closer's log) of {w.n_kf_events} KF events")
     if n_stream < (N_FRAMES - SYNC_FRAMES) * 2 // 3:
         fail(f"the stream path served {n_stream} of {N_FRAMES - SYNC_FRAMES} frames (< 2/3)")
     if launches["tracking"][BEST2] < 4 * n_stream:
@@ -732,8 +777,9 @@ def phase_pipelined(imgs, gt, sync_ate):
 def phase_path_masks(captured):
     """The best-2 kernel checked (tolerance 0) and timed on the inputs of the
     last frame's tracking calls (stereo, motion search, local search,
-    leftover search) and of the last keyframe event's triangulation and
-    fusion searches, beside the pair it replaces (1a + `masked_best2`)."""
+    leftover search), of the last keyframe event's triangulation and fusion
+    searches, and of the last corrected loop event's guided Sim3 search and
+    search-and-fuse, beside the pair it replaces (1a + `masked_best2`)."""
     if not any(label == "tracking" for label, *_ in captured):
         fail("no best-2 call was captured on the last frame")
     if not any(label == "triangulation" for label, *_ in captured):
@@ -747,8 +793,11 @@ def phase_path_masks(captured):
                  f"{tuple(mask.shape)}")
         calls.append(dict(time_best2(da, db, mask), mask="path", caller=label,
                           rows_with_candidates=int(mask.any(1).sum())))
+    for label in ("sim3_guided", "loop_fuse"):
+        if not any(c[0] == label for c in captured):
+            fail(f"no {label} search was captured on the last loop event")
     by_caller = {}
-    for label in ("tracking", "triangulation", "fusion"):
+    for label in ("tracking", "triangulation", "fusion", "sim3_guided", "loop_fuse"):
         mine = [c for c in calls if c["caller"] == label]
         if mine:
             by_caller[label] = {
@@ -759,6 +808,276 @@ def phase_path_masks(captured):
                 "kernel_slower_than_pair": sum(c["ms"] > c["library_ms"] for c in mine)}
     emit({"phase": "path_masks", "by_caller": by_caller, "calls": calls})
     return calls
+
+
+def loop_config(enabled):
+    """The configuration of the JAX package's rendered loop gate
+    (tests/test_loop_rendered.py:80-92): the synchronous entry, the global
+    BA inline."""
+    cam = CameraConfig(fx=FX, fy=FY, cx=CX, cy=CY, bf=BF, th_depth=40.0)
+    return SystemConfig(
+        sensor=Sensor.STEREO, camera=cam, orb=ORBConfig(n_features=800),
+        capacity=CapacityConfig(max_keypoints=1024, max_map_points=30000,
+                                max_keyframes=160, max_local_points=2048),
+        loop=LoopClosingConfig(enabled=enabled, synchronous_gba=True))
+
+
+def render_loop():
+    """The loop circuit of tests/test_loop_rendered.py: 140 frames on 1.27
+    turns of a 2.2 m circle in a 9 x 5 x 14 m room."""
+    world = RoomWorld(width=9.0, height=5.0, length=14.0)
+    poses = trajectory_loop(LOOP_FRAMES, radius=2.2, center=(0.0, 0.0, 7.0), loops=1.27)
+    imgs = []
+    for R_cw, t_cw in poses:
+        left, right = world.render_stereo(R_cw, t_cw, baseline=BASELINE_M, fx=FX, fy=FY,
+                                          cx=CX, cy=CY, w=WIDTH, h=HEIGHT)
+        imgs.append((np.clip(left, 0, 255).astype(np.uint8),
+                     np.clip(right, 0, 255).astype(np.uint8)))
+    return imgs, poses
+
+
+class LoopCapture:
+    """Around the loop closer of one System: its own kernel launches (the
+    launches made inside `process_keyframe`), the best-2 inputs of its
+    guided Sim3 search and search-and-fuse on the last corrected event, and
+    each global BA solve's device time and peak memory."""
+
+    def __init__(self, slam):
+        self.lc = slam.loop_closer
+        self.launches = dict.fromkeys(hamming_cuda.launch_counts, 0)
+        self.label, self.event_calls, self.calls = None, [], []
+        self.gba = []  # per solve: windows, segments, ms, peak MiB
+        self.sim3 = None  # the last Sim3 problem evaluated: kf, c, pc1, pc2, val
+
+    def __enter__(self):
+        lc = self.lc
+        self._best2 = hamming_mod.distance_best2
+        self._process, self._guided, self._fuse = (lc.process_keyframe, lc._guided_refine,
+                                                    lc._search_and_fuse)
+        self._solve = global_ba.GlobalBARunner.solve
+
+        def best2(da, db, mask):
+            if self.label is not None:
+                self.event_calls.append((self.label, da.clone(), db.clone(), mask.clone()))
+            return self._best2(da, db, mask)
+
+        def labelled(fn, label):
+            def run(*a, **k):
+                self.label = label
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.label = None
+            return run
+
+        def process(kf):
+            self.event_calls = []
+            before = dict(hamming_cuda.launch_counts)
+            try:
+                st = self._process(kf)
+            finally:
+                for name, n in hamming_cuda.launch_counts.items():
+                    self.launches[name] += n - before[name]
+            if st.corrected:
+                self.calls = self.event_calls
+            return st
+
+        solve = self._solve
+        records = self.gba
+
+        def solve_measured(runner, *a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            ok = solve(runner, *a, **k)
+            torch.cuda.synchronize()
+            records.append({"windows": len(runner._windows), "segments": runner.n_segments,
+                            "kfs": [int(w[0].size) for w in runner._windows],
+                            "points": [int(w[1].size) for w in runner._windows],
+                            "ms": (time.perf_counter() - t0) * 1e3,
+                            "window_ms": runner.window_ms,
+                            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                            "peak_over_base_mib": (torch.cuda.max_memory_allocated() - base) / 2**20})
+            return ok
+
+        def keep_sim3(**kw):
+            self.sim3 = {k: kw[k] for k in ("kf", "c", "pc1", "pc2", "val")}
+
+        hamming_mod.distance_best2 = best2
+        lc.sim3_debug_hook = keep_sim3
+        lc.process_keyframe = process
+        lc._guided_refine = labelled(self._guided, "sim3_guided")
+        lc._search_and_fuse = labelled(self._fuse, "loop_fuse")
+        global_ba.GlobalBARunner.solve = solve_measured
+        return self
+
+    def __exit__(self, *exc):
+        hamming_mod.distance_best2 = self._best2
+        global_ba.GlobalBARunner.solve = self._solve
+        del self.lc.process_keyframe, self.lc._guided_refine, self.lc._search_and_fuse
+        self.lc.sim3_debug_hook = None
+
+
+def run_loop_circuit(imgs, poses, enabled):
+    """One run of the circuit: returns (system, recomposed-trajectory ATE,
+    host ms per frame, LoopCapture or None)."""
+    slam = System(loop_config(enabled), device=DEVICE)
+    gt = {i / 20.0: -R.T @ t for i, (R, t) in enumerate(poses)}
+    cap = LoopCapture(slam) if enabled else None
+    frame_ms = []
+    if cap is not None:
+        cap.__enter__()
+    try:
+        for i, (left, right) in enumerate(imgs):
+            t0 = time.perf_counter()
+            slam.track_stereo(left, right, i / 20.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        slam.shutdown()
+    finally:
+        if cap is not None:
+            cap.__exit__()
+    est, ref = [], []
+    for ts, T in recompose_trajectory(slam.tracker.relative_poses, slam.store):
+        est.append(-T[:3, :3].T @ T[:3, 3])
+        ref.append(gt[ts])
+    return slam, ate_rmse(np.stack(est), np.stack(ref)), frame_ms, cap
+
+
+def phase_loop():
+    """Loop closing on the card, with the JAX package's gate
+    (tests/test_loop_rendered.py): the circuit with loop closing off, then on
+    (kernel launch counts set to 0 just before, read just after)."""
+    t0 = time.perf_counter()
+    imgs, poses = render_loop()
+    render_s = time.perf_counter() - t0
+    _, ate_off, off_ms, _ = run_loop_circuit(imgs, poses, enabled=False)
+    hamming_cuda.reset_launch_counts()
+    slam, ate_on, on_ms, cap = run_loop_circuit(imgs, poses, enabled=True)
+    launches = dict(hamming_cuda.launch_counts)
+    lc = slam.loop_closer
+    corrected = [(st, ms) for st, ms in zip(lc.stats, lc.event_ms) if st.corrected]
+    rec = {
+        "phase": "loop", "frames": LOOP_FRAMES, "render_s": render_s,
+        "states_ok": sum(st.state == "OK" for st in slam.tracker.stats),
+        "keyframes": int(slam.store.n_keyframes), "loop_events": len(lc.stats),
+        "events_with_candidates": sum(st.n_candidates > 0 for st in lc.stats),
+        "corrected": [dataclasses.asdict(st) for st, _ in corrected],
+        "n_fused": sum(st.n_fused for st, _ in corrected),
+        "ate_loop_on_m": ate_on, "ate_loop_off_m": ate_off,
+        "ate_bound_m": LOOP_ATE_BOUND_M, "ate_ratio_bound": LOOP_ATE_RATIO,
+        "loop_ms_per_corrected_event": [ms for _, ms in corrected],
+        "loop_ms_per_event": {stage: spread([e[stage] for e in lc.event_ms]) for stage in STAGES},
+        "gba": cap.gba,
+        "launches_loop": cap.launches, "launches_run": launches,
+        "loop_warm_up_ms": slam.loop_warm_up_ms,
+        "frame_ms_median_on": statistics.median(on_ms), "frame_ms_median_off": statistics.median(off_ms),
+        "frame_ms_max_on": max(on_ms),
+        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+    }
+    emit(rec)
+    if not corrected:
+        fail("no loop was corrected on the loop circuit")
+    if rec["n_fused"] <= 0:
+        fail("the loop correction fused no point")
+    if not (np.isfinite(ate_on) and ate_on < LOOP_ATE_BOUND_M):
+        fail(f"loop-on ATE {ate_on} m >= {LOOP_ATE_BOUND_M} m")
+    if not ate_on < LOOP_ATE_RATIO * ate_off:
+        fail(f"loop closing must cut drift: on {ate_on} m, off {ate_off} m")
+    if cap.launches[MATRIX] < 1 or cap.launches[BEST2] < 1:
+        fail(f"the loop closer launched {MATRIX} {cap.launches[MATRIX]} and {BEST2} "
+             f"{cap.launches[BEST2]} times")
+    if lc.last_pose_graph is None or lc.last_gba is None:
+        fail("no essential graph or global BA was built")
+    sim3 = dict(cap.sim3, draws=np.asarray(lc.sim3_draws(cap.sim3["kf"], cap.sim3["c"],
+                                                        int(cap.sim3["val"].sum()))))
+    return rec, cap.calls, lc.last_pose_graph, lc.last_gba._windows[-1][3], sim3
+
+
+def solve_and_polish(sim3, device, fix_scale=True):
+    """The loop closer's Sim3 stage on one problem: RANSAC on the given draws,
+    then the GN polish. Returns (inliers, s, R, t, polished inliers)."""
+    cam = loop_config(True).camera
+    d = to_device({k: sim3[k] for k in ("pc1", "pc2", "val", "draws")}, device)
+    res = solve_sim3(d["pc1"], d["pc2"], d["val"], cam.fx, cam.fy, cam.cx, cam.cy,
+                     draws=d["draws"], fix_scale=fix_scale)
+    s_o, R_o, t_o, inl_o = optimize_sim3(res.s, res.R, res.t, d["pc1"], d["pc2"], res.inliers,
+                                         cam.fx, cam.fy, cam.cx, cam.cy, fix_scale=fix_scale)
+    return [x.cpu().numpy() for x in (res.inliers, s_o, R_o, t_o, inl_o)]
+
+
+def phase_loop_solvers(pg, gba_window, sim3):
+    """The last loop event's Sim3 problem (with its own draws), essential
+    graph and its global BA's last window, solved on the card and on the
+    CPU: inliers exact, Sim3 1e-4, poses 1e-3, cost rtol 1e-3. The card's
+    solves are timed cold (the run's first) and warm."""
+    sim3_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = solve_and_polish(sim3, DEVICE)
+        sim3_ms.append((time.perf_counter() - t0) * 1e3)
+    want = solve_and_polish(sim3, "cpu")
+    sim3_rec = {"points": int(sim3["val"].sum()), "card_ms_first_then_warm": sim3_ms,
+                "inliers_equal": bool((got[0] == want[0]).all() and (got[4] == want[4]).all()),
+                "max_abs_d_sRt": max(float(np.abs(g - w).max()) for g, w in zip(got[1:4], want[1:4]))}
+    fix_scale = pg["fix_scale"]
+    arrays = {k: v for k, v in pg.items() if k != "fix_scale"}
+    card = PoseGraphProblem(**to_device(arrays, DEVICE), fix_scale=fix_scale)
+    host = PoseGraphProblem(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in arrays.items()}, fix_scale=fix_scale)
+    pg_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = optimize_pose_graph(card, iters=15)
+        g_cost = float(got[3])
+        pg_ms.append((time.perf_counter() - t0) * 1e3)
+    want = optimize_pose_graph(host, iters=15)
+    pg_rec = {"kfs": int(card.s.shape[0]), "edges": int(card.e_i.shape[0]),
+              "cost": g_cost, "cpu_cost": float(want[3]), "card_ms_twice": pg_ms,
+              "max_abs_dR": float((got[1].cpu() - want[1]).abs().max()),
+              "max_abs_dt": float((got[2].cpu() - want[2]).abs().max()),
+              "max_abs_ds": float((got[0].cpu() - want[0]).abs().max())}
+    pg_rec["cost_rel_diff"] = abs(g_cost - pg_rec["cpu_cost"]) / max(abs(pg_rec["cpu_cost"]), 1e-12)
+    cam = loop_config(True).camera
+    prob_c = LocalBAProblem(**to_device(gba_window, DEVICE))
+    prob_h = LocalBAProblem(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in gba_window.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    seg_ms = []
+
+    def stop():
+        torch.cuda.synchronize()
+        seg_ms.append(time.perf_counter())
+        return False
+
+    res = global_ba.solve_segments(prob_c, cam, 4, 5, stop)
+    stop()
+    b_cost = float(res.final_cost)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ref = global_ba.solve_segments(prob_h, cam, 4, 5)
+    gba_rec = {"kfs": int(prob_c.kf_R.shape[0]), "points": int(prob_c.pt_pos.shape[0]),
+               "obs": int(prob_c.obs_valid.sum()), "cost": b_cost,
+               "cpu_cost": float(ref.final_cost),
+               "segment_ms": [(b - a) * 1e3 for a, b in zip(seg_ms, seg_ms[1:])],
+               "peak_over_base_mib": peak,
+               "max_abs_dR": float((res.kf_R.cpu() - ref.kf_R).abs().max()),
+               "max_abs_dt": float((res.kf_t.cpu() - ref.kf_t).abs().max()),
+               "max_abs_dX": float((res.pt_pos.cpu() - ref.pt_pos).abs().max())}
+    gba_rec["cost_rel_diff"] = abs(b_cost - gba_rec["cpu_cost"]) / max(abs(gba_rec["cpu_cost"]), 1e-12)
+    emit({"phase": "loop_solvers", "tolerance": {"pose": BA_POSE_TOL, "cost_rtol": BA_COST_RTOL,
+                                                  "sim3": SIM3_TOL},
+          "sim3": sim3_rec, "essential_graph": pg_rec, "gba_window": gba_rec})
+    if not (sim3_rec["inliers_equal"] and sim3_rec["max_abs_d_sRt"] <= SIM3_TOL):
+        fail(f"the Sim3 stage on the card disagrees with the CPU: {sim3_rec}")
+    for what, r in (("essential graph", pg_rec), ("GBA window", gba_rec)):
+        if not (np.isfinite(r["cost"]) and r["max_abs_dR"] <= BA_POSE_TOL
+                and r["max_abs_dt"] <= BA_POSE_TOL and r["cost_rel_diff"] <= BA_COST_RTOL):
+            fail(f"{what} on the card disagrees with the CPU: {r}")
 
 
 def phase_local_ba(assembled):
@@ -824,8 +1143,10 @@ def main():
     render_s = time.perf_counter() - t0
     run, captured, ba_problem = phase_main_path(imgs, gt, render_s)
     pipelined = phase_pipelined(imgs, gt, run["ate_rmse_m"])
-    path_calls = phase_path_masks(captured)
+    loop, loop_calls, pose_graph, gba_window, sim3 = phase_loop()
+    path_calls = phase_path_masks(captured + loop_calls)
     phase_local_ba(ba_problem)
+    phase_loop_solvers(pose_graph, gba_window, sim3)
     # the best-2 kernel's headline numbers are those on the path's own masks,
     # largest shape first; the synthetic masks of phase `kernels` follow
     best2 = kernels[BEST2]
@@ -837,7 +1158,10 @@ def main():
     emit({"kernels": [dict(rec, launches=run["kernel_launches"][name],
                            launches_mapping=run["kernel_launches_mapping"][name],
                            launches_pipelined_tracking=pl["tracking"][name],
-                           launches_pipelined_mapping=pl["mapping"][name])
+                           launches_pipelined_mapping=pl["mapping"][name],
+                           launches_pipelined_loop=pl["loop"][name] + pl["gba"][name],
+                           launches_loop_path=loop["launches_run"][name],
+                           launches_loop_closer=loop["launches_loop"][name])
                       for name, rec in kernels.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

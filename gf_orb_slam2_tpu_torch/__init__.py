@@ -4,9 +4,13 @@ Second package beside the JAX one, written for one NVIDIA Hopper GPU. It
 covers synchronous stereo tracking — ORB extraction, stereo matching,
 motion-model + local-map tracking with good-feature selection and pose
 optimization, the keyframe policy and stereo keyframe creation
-(`System.track_stereo`) — and synchronous local mapping on every keyframe
-event: triangulation, fusion, local BA with good-graph selection, keyframe
-culling. It imports torch and numpy only.
+(`System.track_stereo`, and the pipelined `track_stereo_pipelined` with
+an asynchronous mapping worker) — local mapping on every keyframe event
+(triangulation, fusion, local BA with good-graph selection, keyframe
+culling), and place recognition with loop closing (BoW keyframe database,
+Sim3 RANSAC, loop correction with search-and-fuse, the essential graph and
+the global BA). It imports torch and numpy only; the BoW vocabulary is read
+as data from the JAX package's assets directory.
 
 Entry points take an explicit `device` and default to "cuda"; nothing picks
 the CPU because no GPU was found. The hand-written Hamming kernels

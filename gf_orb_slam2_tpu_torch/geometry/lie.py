@@ -1,4 +1,4 @@
-"""Lie-group math: quaternions, SO(3), SE(3) on torch tensors.
+"""Lie-group math on torch tensors: quaternions, SO(3), SE(3), Sim(3).
 
 Conventions (same as the JAX package's geometry/lie.py):
 
@@ -12,6 +12,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from gf_orb_slam2_tpu_torch.utils.linalg3 import solve3
 
 _EPS = 1e-8
 
@@ -85,7 +87,8 @@ def rot_to_quat(R):
     # first-occurrence argmax, written out so CPU and CUDA agree on ties
     n = torch.arange(4, device=R.device)
     is_max = qw >= qw.max(-1, keepdim=True).values
-    idx = torch.where(is_max, n, 4).min(-1).values
+    # (no maximum at all — a NaN matrix — picks 3, as JAX's clamped gather)
+    idx = torch.clamp(torch.where(is_max, n, 4).min(-1).values, max=3)
     cands = torch.stack([c0, c1, c2, c3], -2)
     q = torch.gather(cands, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
     # canonical sign: w >= 0
@@ -202,3 +205,104 @@ def se3_log(R, t):
     eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(W.shape)
     Vinv = eye - 0.5 * W + coef * W2
     return torch.cat([_mv(Vinv, t), phi], -1)
+
+
+# ---------------------------------------------------------------------- Sim(3)
+def sim3_apply(s, R, t, pts):
+    """Similarity transform s·R·p + t (reference: g2o Sim3 map())."""
+    return s[..., None] * _mv(R, pts) + t
+
+
+def sim3_inv(s, R, t):
+    si = 1.0 / torch.clamp(s, min=_EPS)
+    Ri = R.transpose(-1, -2)
+    return si, Ri, -si[..., None] * _mv(Ri, t)
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    return sa * sb, Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta
+
+
+def _sim3_V(phi, sigma):
+    """The V(phi, sigma) of the Sim(3) exponential, t = V·rho: C·I + A·W +
+    B·W² with the four-branch coefficient table of Sophus for small angle
+    and/or small log-scale. Constants enter `torch.where` as tensors of
+    phi's dtype: under torch.func a Python scalar's tangent would be
+    float64."""
+    s = torch.exp(sigma)
+    theta = torch.sqrt(torch.clamp(torch.sum(phi * phi, -1), min=_EPS * _EPS))
+    W = hat(phi)
+    W2 = W @ W
+    eps = 1e-3  # f32-safe: below this, general-branch cancellation dominates
+    th_small = theta < eps
+    sig_small = torch.abs(sigma) < eps
+    th2 = theta * theta
+    sig2 = sigma * sigma
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    one = torch.ones_like(sigma)
+    C_ = torch.where(sig_small, one, (s - 1.0) / torch.where(sig_small, one, sigma))
+    a_ = s * sin_t
+    b_ = s * cos_t
+    c_ = th2 + sig2
+    A_gen = (a_ * sigma + (1.0 - b_) * theta) / torch.clamp(theta * c_, min=_EPS)
+    A_sig0 = (1.0 - cos_t) / torch.clamp(th2, min=_EPS)
+    A_th0 = ((sigma - 1.0) * s + 1.0) / torch.clamp(sig2, min=_EPS)
+    B_gen = (C_ - ((b_ - 1.0) * sigma + a_ * theta) / torch.clamp(c_, min=_EPS)) / torch.clamp(th2, min=_EPS)
+    B_sig0 = (theta - sin_t) / torch.clamp(th2 * theta, min=_EPS)
+    B_th0 = ((0.5 * sig2 - sigma + 1.0) * s - 1.0) / torch.clamp(sig2 * sigma, min=_EPS)
+    A_ = torch.where(sig_small, torch.where(th_small, 0.5 * one, A_sig0),
+                     torch.where(th_small, A_th0, A_gen))
+    B_ = torch.where(sig_small, torch.where(th_small, one / 6.0, B_sig0),
+                     torch.where(th_small, B_th0, B_gen))
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device).expand(W.shape)
+    return C_[..., None, None] * eye + A_[..., None, None] * W + B_[..., None, None] * W2
+
+
+def sim3_exp(xi):
+    """7-dof twist [rho(3), phi(3), sigma] → (s, R, t) (Strasdat; replaces
+    g2o/types/sim3.h exp)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return torch.exp(sigma), so3_exp(phi), _mv(_sim3_V(phi, sigma), rho)
+
+
+def sim3_log(s, R, t):
+    """(s, R, t) → 7-dof twist: the inverse of sim3_exp, rho solved from
+    V·rho = t (3x3 adjugate solve: elementwise, so it batches under
+    torch.func and never waits for the device)."""
+    sigma = torch.log(torch.clamp(s, min=_EPS))
+    phi = so3_log(R)
+    rho = solve3(_sim3_V(phi, sigma), t)
+    return torch.cat([rho, phi, sigma[..., None]], -1)
+
+
+# ------------------------------------------------------------------ alignment
+def horn_sim3(src, dst, fix_scale=False):
+    """Closed-form similarity alignment dst ≈ s·R·src + t (Horn / Umeyama;
+    replaces Sim3Solver::ComputeSim3, reference src/Sim3Solver.cc:~229).
+    src, dst: [..., N, 3]. Returns (s, R, t). R = V·D·Uᵀ is unique where the
+    SVD's signs are not."""
+    mu_s = torch.mean(src, dim=-2, keepdim=True)
+    mu_d = torch.mean(dst, dim=-2, keepdim=True)
+    sc = src - mu_s
+    dc = dst - mu_d
+    H = sc.transpose(-1, -2) @ dc  # cross-covariance [...,3,3]
+    U, S, Vt = torch.linalg.svd(H)
+    Ut = U.transpose(-1, -2)
+    d = torch.sign(torch.linalg.det(Vt.transpose(-1, -2) @ Ut))
+    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+    R = Vt.transpose(-1, -2) @ (D[..., :, None] * Ut)
+    var_s = torch.sum(sc * sc, dim=(-1, -2))
+    s_num = torch.sum(S * D, dim=-1)
+    s = torch.ones_like(var_s) if fix_scale else s_num / torch.clamp(var_s, min=_EPS)
+    t = mu_d[..., 0, :] - s[..., None] * _mv(R, mu_s[..., 0, :])
+    return s, R, t
+
+
+def average_quat(qs, weights=None):
+    """Weighted chordal quaternion mean via the largest eigenvector of Σ w qqᵀ."""
+    if weights is None:
+        weights = torch.ones(qs.shape[:-1], dtype=qs.dtype, device=qs.device)
+    M = torch.einsum("...n,...ni,...nj->...ij", weights, qs, qs)
+    _, vecs = torch.linalg.eigh(M)
+    q = vecs[..., -1]
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

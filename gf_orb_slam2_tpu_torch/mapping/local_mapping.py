@@ -62,6 +62,7 @@ class MappingStats:
     ba_cost: float = 0.0
     ba_kfs: int = 0
     ba_points: int = 0
+    ba_discarded: bool = False  # solved, then dropped: the world moved meanwhile
 
 
 def _inverse_intrinsics(K):
@@ -305,6 +306,9 @@ class LocalMapper:
         merging, it never loses it). Returns (created, fused)."""
         s = self.store
         with s.lock:
+            # world version at assembly: a loop correction while the device
+            # works moves the map, and the write-backs then discard
+            v0 = s.big_change_idx
             tri = self._tri_prepare(kf)
             fuse = self._fuse_prepare(kf)
             if tri is None and fuse is None:
@@ -342,18 +346,20 @@ class LocalMapper:
         t_wb = time.perf_counter()
         created = fused = 0
         if tri is not None:
-            created = self._tri_writeback(kf, tri[0], h["Xw"], h["tri_idx"], h["tri_ok"])
+            created = self._tri_writeback(kf, tri[0], h["Xw"], h["tri_idx"], h["tri_ok"], v0)
         if fuse is not None:
             dsts, _, pts_list = fuse
-            fused = self._fuse_writeback(kf, pts_list, dsts, h["fuse_idx"], h["fuse_ok"])
+            fused = self._fuse_writeback(kf, pts_list, dsts, h["fuse_idx"], h["fuse_ok"], v0)
         self._writeback_ms["triangulate_fuse"] = (time.perf_counter() - t_wb) * 1e3
         return created, fused
 
-    def _tri_writeback(self, kf, kns, Xw_b, idx2_b, ok_b) -> int:
+    def _tri_writeback(self, kf, kns, Xw_b, idx2_b, ok_b, v0: int) -> int:
         s = self.store
         created = 0
         new_ids: List[int] = []
         with s.lock:
+            if s.big_change_idx != v0:
+                return 0  # the world moved while the device worked: discard
             for b, kn in enumerate(kns):
                 i1s = np.nonzero(ok_b[b])[0]
                 if i1s.size == 0:
@@ -377,10 +383,12 @@ class LocalMapper:
                 s.update_connections(kf)
         return created
 
-    def _fuse_writeback(self, kf, pts_list, dst_list, idx_b, ok_b) -> int:
+    def _fuse_writeback(self, kf, pts_list, dst_list, idx_b, ok_b, v0: int) -> int:
         s = self.store
         fused = 0
         with s.lock:
+            if s.big_change_idx != v0:
+                return 0  # the world moved while the device worked: discard
             for bi, (pts, dst) in enumerate(zip(pts_list, dst_list)):
                 for r in np.nonzero(ok_b[bi])[0]:
                     p = int(pts[r]) if r < pts.size else -1
@@ -478,6 +486,7 @@ class LocalMapper:
         write poses, points and outlier removals back."""
         s = self.store
         with s.lock:
+            v0 = s.big_change_idx
             a = self.ba_assemble(kf)
         if a is None:
             return
@@ -502,6 +511,12 @@ class LocalMapper:
             st.ba_kfs = a["n_window"]
         obs_valid, obs_kf = a["prob"]["obs_valid"], a["prob"]["obs_kf"]
         with s.lock:
+            if s.big_change_idx != v0:
+                # a loop correction moved the map during the solve: writing
+                # pre-correction poses back would undo it (the reference
+                # aborts the BA, LocalMapping mbAbortBA)
+                st.ba_discarded = True
+                return
             for i, k in enumerate(kfs):
                 if not fixed[i]:
                     s.set_kf_pose(k, h["kf_R"][i], h["kf_t"][i])

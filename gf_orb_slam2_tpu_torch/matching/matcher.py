@@ -11,6 +11,7 @@ Covered reference entry points:
 - SearchForInitialization (:520)                    → `match_window`
 - SearchByBoW (:270/:635)                           → `match_all`
 - rotation-histogram filter ComputeThreeMaxima (:1723) → `rotation_consistency`
+- SearchBySim3 (:406)                               → `search_by_sim3`
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from gf_orb_slam2_tpu_torch.geometry import lie
 from gf_orb_slam2_tpu_torch.matching import hamming
 from gf_orb_slam2_tpu_torch.ops.select import topk_stable
 
@@ -122,3 +124,31 @@ def rotation_consistency(angle_a, angle_b, matches: Matches, n_keep_bins=3):
     in_top = torch.any((bins[:, None] == top_bins[None, :]) & keep_bin[None, :], -1)
     valid = matches.valid & in_top
     return Matches(torch.where(valid, matches.idx, -1), matches.dist, valid)
+
+
+def search_by_sim3(
+    s12, R12, t12, pc1, pc2, desc1, desc2, valid1, valid2,
+    cam_project, th_px=7.5, th=TH_HIGH,
+):
+    """Cross-projection matching between two keyframes under a Sim3 guess
+    (reference: SearchBySim3 ORBmatcher.cc:406). pc1/pc2 [N,3] are the
+    camera-frame points of each KF; (s12, R12, t12) maps cam1 coords INTO
+    cam2 coords (pc2 ≈ s·R·pc1 + t, the convention of
+    loopclosing/sim3solver.solve_sim3); cam_project(pc) → (uv, z). A pair
+    must land within `th_px` both ways. One fused best-2 search (kernel 1b on
+    CUDA tensors). Returns Matches 1→2."""
+    p1in2 = lie.sim3_apply(s12, R12, t12, pc1)  # KF1 points in cam2
+    uv1in2, z1 = cam_project(p1in2)
+    s21, R21, t21 = lie.sim3_inv(s12, R12, t12)
+    p2in1 = lie.sim3_apply(s21, R21, t21, pc2)  # KF2 points in cam1
+    uv2in1, z2 = cam_project(p2in1)
+    uv1, _ = cam_project(pc1)
+    uv2, _ = cam_project(pc2)
+    d2_a = torch.sum((uv1in2[:, None, :] - uv2[None, :, :]) ** 2, -1)
+    d2_b = torch.sum((uv2in1[:, None, :] - uv1[None, :, :]) ** 2, -1).T
+    mask = ((d2_a <= th_px * th_px) & (d2_b <= th_px * th_px)
+            & valid1[:, None] & valid2[None, :]
+            & (z1[:, None] > 0) & (z2[None, :] > 0))
+    best_idx, best, _ = hamming.distance_best2(desc1, desc2, mask.contiguous())
+    accept = hamming.resolve_duplicates(best_idx, best, best <= th, desc2.shape[0])
+    return _matches(best_idx, best, accept)

@@ -18,12 +18,21 @@ Two drivers:
   mapping worker thread (the reference's LocalMapping thread,
   System.cc:113-124) that runs on its own CUDA stream.
 
-Loop closing, relocalization and the mono/RGB-D sensors are not part of this
+With `loop.enabled` (the default) every mapped keyframe then goes through
+place recognition and loop closing (loopclosing/loop_closer.py): before the
+next frame on the synchronous path, on a loop worker thread of its own (the
+reference's LoopClosing thread) with async mapping. A correction moves the
+map; live tracking learns it through `Tracker.notify_map_rebase` and applies
+it before its next frame. The global BA after a correction runs on a
+detached thread unless `loop.synchronous_gba`.
+
+Relocalization, the mono/RGB-D sensors and MIH hashing are not part of this
 package yet; the options that would ask for them raise instead of being
 ignored.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from collections import deque
@@ -36,8 +45,11 @@ from gf_orb_slam2_tpu_torch.config import Sensor, SystemConfig
 from gf_orb_slam2_tpu_torch.features.extractor import ORBExtractor
 from gf_orb_slam2_tpu_torch.geometry import camera as cam_mod
 from gf_orb_slam2_tpu_torch.io import trajectory as traj_io
+from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import LoopCloser
 from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper
 from gf_orb_slam2_tpu_torch.matching import stereo as stereo_mod
+from gf_orb_slam2_tpu_torch.place.keyframe_db import KeyFrameDatabase
+from gf_orb_slam2_tpu_torch.place.vocabulary import Vocabulary
 from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
@@ -45,6 +57,12 @@ from gf_orb_slam2_tpu_torch.tracking.tracker import Tracker, TrackState
 from gf_orb_slam2_tpu_torch.utils.transfer import to_device, to_host_async
 
 MAPPING_THREAD = "mapping"  # name of the mapping worker's thread
+LOOP_THREAD = "loop"        # name of the loop worker's thread
+# the vocabularies shipped with the JAX package, read as data (never
+# imported): the largest first, as that package picks them
+VOCAB_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "gf_orb_slam2_tpu", "assets")
+VOCAB_FILES = ("vocab100k.npz", "vocab10k.npz")
 
 
 def _to_u8(im) -> np.ndarray:
@@ -56,7 +74,42 @@ def _to_u8(im) -> np.ndarray:
     return np.clip(im, 0, 255).astype(np.uint8)
 
 
-class _MappingWorker:
+class _Worker:
+    """A thread fed keyframe ids through a queue (None stops it). Subclasses
+    give `_run`; an exception on the thread is raised by the next
+    `wait_idle()`."""
+
+    def __init__(self, system: "System", name: str):
+        self.sys = system
+        self._q = queue.Queue()
+        self._error = None
+        self._thread = threading.Thread(target=self._run, name=name, daemon=True)
+
+    def _stream(self):
+        """The thread's own CUDA stream (None on the CPU)."""
+        device = self.sys.device
+        return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def submit(self, kf: int):
+        self._q.put(kf)
+
+    def queue_depth(self) -> int:
+        return self._q.qsize()
+
+    def wait_idle(self):
+        """Block until every submitted KF is processed; raise what failed."""
+        self._q.join()
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+    def stop(self):
+        self._q.put(None)
+        self._q.join()
+        self._thread.join()
+
+
+class _MappingWorker(_Worker):
     """The asynchronous local mapper: keyframes queue here from the pipelined
     driver and run through `System._on_keyframe` on a thread of their own
     (the reference's LocalMapping thread, System.cc:113-124). The mapper's
@@ -73,17 +126,13 @@ class _MappingWorker:
     next `wait_idle()`."""
 
     def __init__(self, system: "System"):
-        self.sys = system
-        self._q = queue.Queue()
-        self._error = None
+        super().__init__(system, MAPPING_THREAD)
         self.n_kf_events = 0
         self.n_ba_runs = 0
         self.n_ba_merged = 0
         self.max_batch = 0
         # held while a batch runs; pause() takes it between batches
         self._work_lock = threading.Lock()
-        self._thread = threading.Thread(target=self._run, name=MAPPING_THREAD,
-                                        daemon=True)
         self._thread.start()
 
     def pause(self):
@@ -94,15 +143,8 @@ class _MappingWorker:
     def resume(self):
         self._work_lock.release()
 
-    def submit(self, kf: int):
-        self._q.put(kf)
-
-    def queue_depth(self) -> int:
-        return self._q.qsize()
-
     def _run(self):
-        device = self.sys.device
-        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        stream = self._stream()
         while True:
             kf = self._q.get()
             if kf is None:
@@ -143,27 +185,42 @@ class _MappingWorker:
             if stop:
                 return
 
-    def wait_idle(self):
-        """Block until every submitted KF is processed; raise what failed."""
-        self._q.join()
-        if self._error is not None:
-            e, self._error = self._error, None
-            raise e
 
-    def stop(self):
-        self._q.put(None)
-        self._q.join()
-        self._thread.join()
+class _LoopWorker(_Worker):
+    """The loop closer on a thread of its own (reference: System.cc:117
+    spawns LoopClosing apart from LocalMapping): detection and Sim3 never
+    delay the next keyframe's mapping. Keyframes queue here from the mapping
+    worker; on a CUDA device the thread enqueues on its own stream."""
+
+    def __init__(self, system: "System"):
+        super().__init__(system, LOOP_THREAD)
+        self.n_events = 0
+        self._thread.start()
+
+    def _run(self):
+        stream = self._stream()
+        while True:
+            kf = self._q.get()
+            if kf is None:
+                self._q.task_done()
+                return
+            try:
+                if stream is None:
+                    self.sys.loop_closer.process_keyframe(kf)
+                else:
+                    with torch.cuda.stream(stream):
+                        self.sys.loop_closer.process_keyframe(kf)
+                self.n_events += 1
+            except Exception as e:  # raised at the next wait_idle()
+                self._error = e
+            finally:
+                self._q.task_done()
 
 
 class System:
     def __init__(self, cfg: SystemConfig, device="cuda"):
         """`device` is taken as given: with the default and no CUDA device
         present, construction raises (nothing falls back to the CPU)."""
-        if cfg.loop.enabled:
-            raise NotImplementedError(
-                "loop closing is not part of this package yet: pass "
-                "loop=LoopClosingConfig(enabled=False)")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -189,7 +246,20 @@ class System:
         self._inflight = deque()
         self._pipeline_depth = cfg.tracking.pipeline_depth
         self._map_worker: Optional[_MappingWorker] = None
+        self._loop_worker: Optional[_LoopWorker] = None
         self.n_stream_fallbacks = 0  # streamed frames tracked synchronously
+        # place recognition and loop closing (reference wiring:
+        # System.cc:78-118): the vocabulary is loaded up front; without one
+        # (`vocabulary_path=""`) a vocabulary is trained from the first
+        # keyframes' descriptors once there are enough of them
+        self.voc = None
+        self.kfdb = None
+        self.loop_closer = None
+        self._vocab_min_kfs = 8
+        if cfg.loop.enabled:
+            self._load_vocabulary()
+            if self.voc is not None:
+                self._ensure_place_recognition()
         self._rectify_left: Optional[cam_mod.RectifyMap] = None
         self._rectify_right: Optional[cam_mod.RectifyMap] = None
         if cam.left_K is not None:
@@ -222,9 +292,10 @@ class System:
         or the track was lost) is tracked synchronously after the pipeline
         drains, and counted in `n_stream_fallbacks`.
 
-        Left out: the JAX package's rebase of the chain after a loop
-        correction moves the map (`pending_map_rebase`): only its loop
-        closer sets it, and loop closing is not part of this package.
+        A loop correction (or a GBA write-back) that moved the map is
+        applied here before the next dispatch: the frames still in flight
+        were dispatched in the old world and complete first, then the chain,
+        the last pose and the pool are rebased (`apply_pending_rebase`).
         """
         assert self.cfg.sensor == Sensor.STEREO
         tr = self.tracker
@@ -243,12 +314,23 @@ class System:
         while len(self._inflight) >= self._pipeline_depth:
             done.append(self._complete_one())
         if not tr.stream_ready():  # a completion lost the track or its pool
-            self.n_stream_fallbacks += 1
-            done += self.flush_pipeline()
-            pose = self.track_stereo(im_left, im_right, timestamp)
-            return done + [(self.frame_id - 1, pose)]
+            return done + self._stream_fallback(im_left, im_right, timestamp)
+        if tr.pending_map_rebase is not None:
+            while self._inflight:
+                done.append(self._complete_one())
+            with self.store.lock:
+                tr.apply_pending_rebase()
+            if not tr.stream_ready():
+                return done + self._stream_fallback(im_left, im_right, timestamp)
         self._dispatch_stream(im_left, im_right, timestamp)
         return done
+
+    def _stream_fallback(self, im_left, im_right, timestamp: float):
+        """Track a frame that cannot stream synchronously, after draining."""
+        self.n_stream_fallbacks += 1
+        done = self.flush_pipeline()
+        pose = self.track_stereo(im_left, im_right, timestamp)
+        return done + [(self.frame_id - 1, pose)]
 
     def _dispatch_stream(self, im_left, im_right, timestamp: float):
         """Enqueue one streamed frame: mirror sync, the one upload, frontend,
@@ -284,21 +366,38 @@ class System:
             self._on_keyframe(kf)
 
     def flush_pipeline(self):
-        """Complete every frame in flight and wait for the mapping worker;
-        returns [(frame_id, Tcw), ...]. A mapping failure is raised here."""
+        """Complete every frame in flight and wait for the mapping worker,
+        the loop worker and a detached GBA; returns [(frame_id, Tcw), ...].
+        A failure on any of them is raised here."""
         done = []
         while self._inflight:
             done.append(self._complete_one())
         self.tracker._chain = None
-        if self._map_worker is not None:
-            self._map_worker.wait_idle()
+        self._wait_workers()
+        if self.loop_closer is not None:
+            self.loop_closer.wait_gba()
         return done
 
-    def _track(self, frame: Frame) -> np.ndarray:
+    def _wait_workers(self):
         if self._map_worker is not None:
-            # the synchronous path reads the store without the worker's
-            # locking discipline: settle the map first
             self._map_worker.wait_idle()
+        if self._loop_worker is not None:
+            self._loop_worker.wait_idle()
+
+    def track_frame(self, frame: Frame) -> np.ndarray:
+        """Feature-level entry (synthetic data, tests): a host Frame with its
+        keypoint arrays filled, tracked as `track_stereo` tracks an image
+        pair's frame. Returns its 4x4 Tcw."""
+        return self._track(frame)
+
+    def _track(self, frame: Frame) -> np.ndarray:
+        # the synchronous path reads the store without the workers' locking
+        # discipline: settle the map first
+        self._wait_workers()
+        # a correction that landed before or DURING those waits is applied
+        # now, before this frame reads the map
+        with self.store.lock:
+            self.tracker.apply_pending_rebase()
         st = self.tracker.process_frame(frame)
         # hard reset when lost far too long (reference: System.cc:195-209)
         if self.tracker.state == TrackState.LOST and not self.cfg.localization_only:
@@ -311,9 +410,92 @@ class System:
 
     def _on_keyframe(self, kf: int, skip_ba: bool = False):
         """KF post-processing: the local mapping stages (reference:
-        LocalMapping::Run) — before the next frame on the synchronous path,
-        on the mapping worker with `tracking.async_mapping`."""
+        LocalMapping::Run), then loop closing — before the next frame on the
+        synchronous path; with `tracking.async_mapping` on the mapping worker,
+        which hands the KF on to the loop worker."""
         self.mapper.process_keyframe(kf, skip_ba=skip_ba)
+        if not self.cfg.loop.enabled:
+            return
+        self._ensure_place_recognition()
+        if self.loop_closer is None:
+            return
+        if self.cfg.tracking.async_mapping:
+            if self._loop_worker is None:
+                self._loop_worker = _LoopWorker(self)
+            self._loop_worker.submit(kf)
+        else:
+            self.loop_closer.process_keyframe(kf)
+
+    # -------------------------------------------------- place recognition
+    def _load_vocabulary(self):
+        """The BoW vocabulary (reference: System.cc:78-84).
+        `cfg.vocabulary_path`: None → the repo's shipped vocabulary (the
+        largest found); "" → none (trained lazily from the map); a path →
+        that .npz."""
+        path = self.cfg.vocabulary_path
+        if path == "":
+            return
+        if path is None:
+            path = next((p for p in (os.path.join(VOCAB_DIR, n) for n in VOCAB_FILES)
+                         if os.path.exists(p)), None)
+            if path is None:
+                return
+        self.voc = Vocabulary.load(path)
+
+    def _ensure_place_recognition(self):
+        """Stand up the KF database and the loop closer once a vocabulary
+        exists (reference wiring: System.cc:96-118). Without a loaded one, a
+        vocabulary is trained from the valid KFs' descriptors once there are
+        `_vocab_min_kfs` KFs and 512 descriptors (a 20,000-descriptor sample
+        drawn with `default_rng(0)`, as the JAX package draws it)."""
+        if self.kfdb is not None:
+            return
+        if self.voc is None:
+            if self.store.n_keyframes < self._vocab_min_kfs:
+                return
+            s = self.store
+            with s.lock:  # snapshot descriptors; training runs unlocked
+                data = np.concatenate([s.kf_desc[k][s.kf_kp_valid[k]]
+                                       for k in s.valid_kf_ids()], 0)
+            if len(data) < 512:
+                return
+            if len(data) > 20000:
+                data = data[np.random.default_rng(0).choice(len(data), 20000, replace=False)]
+            self.voc = Vocabulary.train(data, k=8, levels=3, iters=4)
+        self.kfdb = KeyFrameDatabase(self.voc, self.store)
+        for k in self.store.valid_kf_ids()[:-1]:
+            self.kfdb.add(int(k))
+        lc = LoopCloser(self.cfg, self.store, self.kfdb, self.device)
+        lc.map_rebase_cb = self.tracker.notify_map_rebase
+        lc.gba_writeback_cb = self._on_gba_writeback
+        lc.pause_mapping_cb = self._pause_mapping
+        lc.resume_mapping_cb = self._resume_mapping
+        self.tracker.kfdb = self.kfdb
+        # the device's one-time set-up for the loop stages, now rather than
+        # in the first loop event
+        self.loop_warm_up_ms = lc.warm_up()
+        self.loop_closer = lc
+
+    def _pause_mapping(self):
+        if self._map_worker is not None:
+            self._map_worker.pause()
+
+    def _resume_mapping(self):
+        if self._map_worker is not None:
+            self._map_worker.resume()
+
+    def _on_gba_writeback(self, before_R, before_t):
+        """A GBA write-back rebases live tracking by its reference KF's pose
+        change (store.lock held; see Tracker.notify_map_rebase)."""
+        k = self.tracker.ref_kf
+        s = self.store
+        if k is None or k < 0 or not s.kf_valid[k]:
+            return
+        R_D = s.kf_R[k].T @ before_R[k]
+        t_D = s.kf_R[k].T @ (before_t[k] - s.kf_t[k])
+        ang = float(np.arccos(np.clip((np.trace(R_D) - 1) / 2, -1.0, 1.0)))
+        if ang > 1e-4 or float(np.linalg.norm(t_D)) > 1e-4:
+            self.tracker.notify_map_rebase(R_D, t_D)
 
     # ------------------------------------------------------- frame builders
     def _pad_feats(self, f):
@@ -365,11 +547,19 @@ class System:
 
     def reset(self):
         """Reference: System::Reset (System.cc:376) → Tracking::Reset. Waits
-        for the mapping worker and drops the frames in flight."""
-        if self._map_worker is not None:
-            self._map_worker.wait_idle()
+        for the workers, aborts a running GBA (it must not write old-map
+        poses onto the slots of the new map) and drops the frames in
+        flight."""
+        self._wait_workers()
+        if self.loop_closer is not None:
+            self.loop_closer.abort_gba()
+            self.loop_closer._consistent.clear()
+            self.loop_closer.last_loop_kf = -1
+        if self.kfdb is not None:
+            self.kfdb.clear()
         self._inflight.clear()
         self.tracker._chain = None
+        self.tracker.pending_map_rebase = None
         self.store.clear()  # detaches the device mirror too
         tr = self.tracker
         tr.state = TrackState.NO_IMAGES_YET
@@ -383,14 +573,19 @@ class System:
 
     def shutdown(self):
         """Reference: System::Shutdown (System.cc:382): completes the frames
-        in flight, stops and joins the mapping worker, and waits for the
-        device to finish what was enqueued."""
+        in flight, stops and joins the mapping and loop workers, joins a
+        running GBA, and waits for the device to finish what was enqueued."""
         try:
             self.flush_pipeline()
         finally:
             if self._map_worker is not None:
                 self._map_worker.stop()
                 self._map_worker = None
+            if self._loop_worker is not None:
+                self._loop_worker.stop()
+                self._loop_worker = None
+            if self.loop_closer is not None:
+                self.loop_closer.abort_gba()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 

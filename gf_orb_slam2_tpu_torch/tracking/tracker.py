@@ -427,6 +427,10 @@ class Tracker:
         self._cached_pool = None  # (ids, host pool arrays) for the fused paths
         self._pool_stale_frames = 0
         self._chain = None  # device chain of the pipelined path (stream_step)
+        # a rigid move of the map around the tracker, waiting to be applied
+        # (notify_map_rebase / apply_pending_rebase)
+        self.pending_map_rebase = None
+        self.kfdb = None  # set by System once place recognition is up
 
     # ---------------------------------------------------------- transfers
     def _up(self, a):
@@ -457,6 +461,52 @@ class Tracker:
             frame.fill_host(host)
             return host
         return to_host(results)
+
+    # ------------------------------------------------- map-rebase protocol
+    def notify_map_rebase(self, R_D, t_D):
+        """Record that the map around the tracker moved rigidly:
+        X_new = R_D·X_old + t_D (callers: the loop correction, the essential
+        graph and the GBA write-back, all with store.lock held). Deltas
+        compose until `apply_pending_rebase` applies them."""
+        R_D = np.asarray(R_D, np.float32)
+        t_D = np.asarray(t_D, np.float32)
+        if self.pending_map_rebase is None:
+            self.pending_map_rebase = (R_D.copy(), t_D.copy())
+        else:
+            R0, t0 = self.pending_map_rebase
+            self.pending_map_rebase = (R_D @ R0, R_D @ t0 + t_D)
+
+    def apply_pending_rebase(self):
+        """Apply a pending rigid rebase to the tracking state (store.lock
+        held): the last frame's pose (T ← T∘D⁻¹), in streaming mode the
+        chain's two poses and its cached point positions (on the device), and
+        the host pool's positions and normals. The pipelined step reads point
+        data from the device map mirror by id, which the correction marked."""
+        pend = self.pending_map_rebase
+        if pend is None:
+            return
+        self.pending_map_rebase = None
+        R_D, t_D = pend
+        lf = self.last_frame
+        if lf is not None and lf.R is not None:
+            R_new = (lf.R @ R_D.T).astype(np.float32)
+            lf.t = (lf.t - R_new @ t_D).astype(np.float32)
+            lf.R = R_new
+        if self._chain is not None:
+            ch = self._chain
+            d = to_device(dict(R=R_D, t=t_D), self.device)
+            out = dict(ch)
+            for k in ("1", "2"):
+                Rn = ch["R" + k] @ d["R"].T
+                out["R" + k] = Rn
+                out["t" + k] = ch["t" + k] - Rn @ d["t"]
+            out["pt_pos"] = ch["pt_pos"] @ d["R"].T + d["t"]
+            self._chain = out
+        if self._cached_pool is not None:
+            pts, loc = self._cached_pool
+            loc = ((loc[0] @ R_D.T + t_D).astype(np.float32),
+                   (loc[1] @ R_D.T).astype(np.float32)) + tuple(loc[2:])
+            self._cached_pool = (pts, loc)
 
     # ------------------------------------------------------------ per frame
     def process_frame(self, frame: Frame) -> TrackStats:

@@ -61,7 +61,7 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     device = torch.device(device)
     offsets, total = {}, 0
     for k, a in arrays.items():
-        a = np.ascontiguousarray(a)
+        a = np.ascontiguousarray(a).reshape(np.shape(a))  # 0-d arrays stay 0-d
         offsets[k] = (total, a)
         total += -(-a.nbytes // 16) * 16
     host = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")

@@ -23,6 +23,7 @@ from gf_orb_slam2_tpu.io import evaluation as jeval, trajectory as jtraj
 from gf_orb_slam2_tpu.slammap.store import MapStore as JMapStore
 from gf_orb_slam2_tpu_torch import config as tconfig, convert
 from gf_orb_slam2_tpu_torch.io import evaluation as teval, trajectory as ttraj
+from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import LoopCloser
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore as TMapStore
 from gf_orb_slam2_tpu_torch.system import System
 from gf_orb_slam2_tpu_torch.tracking.tracker import TrackState
@@ -163,8 +164,8 @@ def test_default_device_raises_without_cuda():
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter, importing the port (the mapping slice's
-    modules named one by one) adds no jax module and nothing of the JAX
+    """In a fresh interpreter, importing the port (the mapping and loop
+    closing slices' modules named one by one) adds no jax module and nothing of the JAX
     package to sys.modules (compared against what the interpreter's own
     start-up had already loaded); once torch is loaded, the port brings in
     nothing but its own modules and the standard library. It also pins
@@ -182,6 +183,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "gf_orb_slam2_tpu_torch.selection.anticipation, "
         "gf_orb_slam2_tpu_torch.geometry.triangulate, gf_orb_slam2_tpu_torch.utils.linalg3, "
         "gf_orb_slam2_tpu_torch.slammap.device_mirror\n"
+        "import gf_orb_slam2_tpu_torch.place.vocabulary, gf_orb_slam2_tpu_torch.place.keyframe_db, "
+        "gf_orb_slam2_tpu_torch.loopclosing.sim3solver, "
+        "gf_orb_slam2_tpu_torch.loopclosing.loop_closer, gf_orb_slam2_tpu_torch.optim.pose_graph, "
+        "gf_orb_slam2_tpu_torch.optim.global_ba, gf_orb_slam2_tpu_torch.utils.autodiff\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'gf_orb_slam2_tpu')]\n"
         "assert not bad, bad\n"
@@ -208,16 +213,20 @@ def _repo_root():
 
 
 def test_unported_options_raise_instead_of_misbehaving():
-    """Options of parts not ported raise; asynchronous mapping is ported and
-    constructs (its worker starts with the first keyframe event)."""
+    """Options of parts not ported raise; asynchronous mapping and loop
+    closing are ported and construct (the loop closer at once, with the
+    shipped vocabulary; the workers with the first keyframe event)."""
     cfg = _small_config()
     with pytest.raises(NotImplementedError):
         System(cfg.replace(hashing=tconfig.HashingConfig(enabled=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        System(cfg.replace(loop=tconfig.LoopClosingConfig()), device="cpu")
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        System(cfg.replace(loop=tconfig.LoopClosingConfig(),
-                           tracking=tconfig.TrackingConfig(async_mapping=True)), device="cpu")
+    for tracking in (tconfig.TrackingConfig(async_mapping=False),
+                     tconfig.TrackingConfig(async_mapping=True)):
+        slam = System(cfg.replace(loop=tconfig.LoopClosingConfig(), tracking=tracking),
+                      device="cpu")
+        assert isinstance(slam.loop_closer, LoopCloser) and slam.kfdb is not None
+        assert slam.voc.V == 100000 and slam._loop_worker is None
+        slam.shutdown()
+    assert System(cfg, device="cpu").loop_closer is None  # loop closing off
     slam = System(cfg.replace(tracking=tconfig.TrackingConfig(async_mapping=True)), device="cpu")
     assert slam.cfg.tracking.async_mapping and slam._map_worker is None
     slam.shutdown()

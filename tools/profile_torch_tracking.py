@@ -2,7 +2,7 @@
 """Where a frame's time goes in the PyTorch/CUDA port (one NVIDIA GPU).
 
     python3 tools/profile_torch_tracking.py [--frames 30] [--map-frames 60]
-                                            [--pipelined 24] [--out DIR]
+                                            [--pipelined 24] [--loop 140] [--out DIR]
 
 Drives `System.track_stereo` at the headline stereo configuration on the
 rendered room tour (the scene of chip_smoke.py), local mapping on, and
@@ -19,12 +19,24 @@ reports, for the steady frames after the warm-up:
   stage call runs under its own `torch.profiler` window, giving its wall
   milliseconds, its device kernels and its device-busy share;
 - with `--pipelined N` (N > 0), bench.py's driver on a second System with
-  the asynchronous mapping worker: frames 0-15 through `track_stereo`, then
-  `track_stereo_pipelined` up to frame 40, then a `torch.profiler` window over
-  the next N calls — host ms per call, device-busy share, device kernels and
-  kernel launches per call by thread (tracking thread, mapping worker), the
-  Hamming launches by thread, and the driver's mirror sync, dispatch and
-  completion ms.
+  bench.py's whole configuration (the asynchronous mapping worker, loop
+  closing on its own worker, the detached global BA): frames 0-15 through
+  `track_stereo`, then `track_stereo_pipelined` up to frame 40, then a
+  `torch.profiler` window over the next N calls — host ms per call,
+  device-busy share, device kernels and kernel launches per call by thread
+  (tracking thread, mapping worker), the Hamming launches by thread (the
+  loop worker's too), and the driver's mirror sync, dispatch and
+  completion ms;
+- with `--loop N` (N > 0), the first N frames of the loop circuit of
+  chip_smoke.py's phase `loop` (loop closing on, the global BA inline)
+  through `track_stereo`, with each loop-closer stage call under its own
+  `torch.profiler` window — loop.detect (BoW database), loop.sim3 (per
+  candidate: the Hamming matrix kernel + both reductions, RANSAC, GN
+  polish, and the guided search + second polish, which the closer's own
+  `event_ms` splits apart), loop.fuse (search-and-fuse), loop.essential_graph,
+  loop.gba (the whole global BA, inline) — giving per call its wall ms,
+  device kernels and device-busy share, plus the closer's host ms per stage
+  of each corrected event and the Hamming launches by the loop closer.
 
 Prints one JSON object (also written to <out>/profile_torch_tracking.json)
 with the card's name and power limit beside the numbers.
@@ -46,6 +58,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (scene, configuration and renderer loader)
 from gf_orb_slam2_tpu_torch.features import extractor as extractor_mod  # noqa: E402
+from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import LoopCloser  # noqa: E402
 from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper  # noqa: E402
 from gf_orb_slam2_tpu_torch.matching import matcher, stereo  # noqa: E402
 from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
@@ -66,6 +79,13 @@ MAP_STAGES = (
     ("create_and_fuse", "map.triangulate_fuse"),
     ("run_local_ba", "map.local_ba"),
     ("cull_keyframes", "map.cull"),
+)
+LOOP_STAGES = (
+    ("_detect_loop", "loop.detect"),
+    ("_compute_sim3", "loop.sim3"),
+    ("_search_and_fuse", "loop.fuse"),
+    ("_optimize_essential_graph", "loop.essential_graph"),
+    ("_launch_global_ba", "loop.gba"),
 )
 
 
@@ -110,15 +130,15 @@ def _device_ms(events):
     return sum(_device_us(e) for e in events if _is_kernel(e)) / 1e3
 
 
-def profile_mapper_stages(slam, imgs, start, stop):
-    """Track frames [start, stop) with every mapper stage call run under its
-    own profiler window; returns per-stage records per keyframe event."""
+def _stage_profilers(owner, stages, records):
+    """Wrap each stage method of `owner` so that every call runs under its
+    own profiler window and appends {ms, kernels, device_ms} to
+    records[label]. Returns the (name, original) pairs to put back."""
     from torch.profiler import ProfilerActivity, profile
 
-    records = collections.defaultdict(list)
     originals = []
-    for name, label in MAP_STAGES:
-        fn = getattr(LocalMapper, name)
+    for name, label in stages:
+        fn = getattr(owner, name)
         originals.append((name, fn))
 
         def timed(self, *aa, _fn=fn, _label=label, **kw):
@@ -134,15 +154,12 @@ def profile_mapper_stages(slam, imgs, start, stop):
                                     "device_ms": dev})
             return out
 
-        setattr(LocalMapper, name, timed)
-    n_events0 = len(slam.mapper.stats)
-    try:
-        track(slam, imgs, start, stop)
-    finally:
-        for name, fn in originals:
-            setattr(LocalMapper, name, fn)
-    n_events = len(slam.mapper.stats) - n_events0
-    out = {"frames": stop - start, "keyframe_events": n_events}
+        setattr(owner, name, timed)
+    return originals
+
+
+def _stage_summary(records, n_events):
+    out = {}
     for label, recs in records.items():
         ms = [r["ms"] for r in recs]
         out[label] = {
@@ -153,15 +170,71 @@ def profile_mapper_stages(slam, imgs, start, stop):
     return out
 
 
+def profile_mapper_stages(slam, imgs, start, stop):
+    """Track frames [start, stop) with every mapper stage call run under its
+    own profiler window; returns per-stage records per keyframe event."""
+    records = collections.defaultdict(list)
+    originals = _stage_profilers(LocalMapper, MAP_STAGES, records)
+    n_events0 = len(slam.mapper.stats)
+    try:
+        track(slam, imgs, start, stop)
+    finally:
+        for name, fn in originals:
+            setattr(LocalMapper, name, fn)
+    n_events = len(slam.mapper.stats) - n_events0
+    return dict({"frames": stop - start, "keyframe_events": n_events},
+                **_stage_summary(records, n_events))
+
+
+def profile_loop(n_frames):
+    """The loop circuit with each loop-closer stage call under its own
+    profiler window."""
+    from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import STAGES
+
+    imgs, _ = chip_smoke.render_loop()
+    slam = System(chip_smoke.loop_config(True))
+    records = collections.defaultdict(list)
+    originals = _stage_profilers(LoopCloser, LOOP_STAGES, records)
+    lc = slam.loop_closer
+    launches = dict.fromkeys(hamming_cuda.launch_counts, 0)
+    process = lc.process_keyframe
+
+    def counted(kf):
+        before = dict(hamming_cuda.launch_counts)
+        try:
+            return process(kf)
+        finally:
+            for k, v in hamming_cuda.launch_counts.items():
+                launches[k] += v - before[k]
+
+    lc.process_keyframe = counted
+    try:
+        track(slam, imgs, 0, min(n_frames, len(imgs)))
+    finally:
+        for name, fn in originals:
+            setattr(LoopCloser, name, fn)
+    slam.shutdown()
+    n_events = len(lc.stats)
+    corrected = [(st, ms) for st, ms in zip(lc.stats, lc.event_ms) if st.corrected]
+    return dict({"frames": min(n_frames, len(imgs)), "keyframe_events": n_events,
+                 "corrected": len(corrected),
+                 "host_ms_per_corrected_event": [ms for _, ms in corrected],
+                 "host_ms_per_event_median": {
+                     s: statistics.median(e[s] for e in lc.event_ms) for s in STAGES},
+                 "hamming_launches_by_loop_closer": launches,
+                 "gba_window_ms": lc.last_gba.window_ms if lc.last_gba else None},
+                **_stage_summary(records, n_events))
+
+
 def profile_pipelined(imgs, n_calls):
     """bench.py's driver with the mapping worker; a profiler window over
     `n_calls` pipelined calls from frame 40 on."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror
-    from gf_orb_slam2_tpu_torch.system import MAPPING_THREAD
+    from gf_orb_slam2_tpu_torch.system import LOOP_THREAD, MAPPING_THREAD
 
-    slam = System(chip_smoke.headline_config(async_mapping=True))
+    slam = System(chip_smoke.headline_config(async_mapping=True, loop=True))
     for i in range(16):
         slam.track_stereo(imgs[i][0], imgs[i][1], i / 20.0)
     start = 40
@@ -200,7 +273,8 @@ def profile_pipelined(imgs, n_calls):
     finally:
         DeviceMapMirror.sync, LocalMapper.process_keyframe = orig_sync, orig_event
     launches = {"tracking": hamming_cuda.thread_launch_counts("MainThread"),
-                "mapping": hamming_cuda.thread_launch_counts(MAPPING_THREAD)}
+                "mapping": hamming_cuda.thread_launch_counts(MAPPING_THREAD),
+                "loop": hamming_cuda.thread_launch_counts(LOOP_THREAD)}
     events = prof.events()
     thread_of = {}
     for e in events:
@@ -252,6 +326,8 @@ def main():
     ap.add_argument("--map-frames", type=int, default=60)
     ap.add_argument("--pipelined", type=int, default=24,
                     help="pipelined calls in the profiler window (0: skip)")
+    ap.add_argument("--loop", type=int, default=140,
+                    help="frames of the loop circuit with the loop closer profiled (0: skip)")
     ap.add_argument("--out", default=os.path.join(ROOT, "profile_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -336,6 +412,7 @@ def main():
         },
         "mapping": mapping,
         "pipelined": profile_pipelined(imgs, args.pipelined) if args.pipelined > 0 else None,
+        "loop": profile_loop(args.loop) if args.loop > 0 else None,
     }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "profile_torch_tracking.json"), "w") as f:
