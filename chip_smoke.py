@@ -37,6 +37,17 @@ launched both kernels. Its Sim3 guided search and search-and-fuse masks join
 phase `path_masks`; phase `loop_solvers` solves its last essential graph and
 global BA window on the card against the same problems on the CPU.
 
+Phases `reloc`, `mono` and `rgbd` drive the other entry points with the
+JAX package's gates: relocalization after a 6-frame blackout on the loop
+circuit (tests/test_reloc_rendered.py: LOST in the blackout, OK within 10
+frames, no reset, the tail's ATE), `track_monocular` on the same circuit
+with loop closing on and off (tests/test_mono_rendered.py: the two-view
+initializer, a loop corrected with a free scale, the Sim3-aligned ATE), and
+`track_rgbd` on the room tour's 150 frames with the renderer's own ray depth
+(150/150 OK from frame 0, ATE). Their best-2 masks (the monocular
+initializer's window search, a monocular and an RGB-D tracking search) and
+the relocalization's matrix inputs join phase `path_masks`.
+
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code. The last line is {"ok": true, "device": {...}} and is
 printed only if every phase passed.
@@ -44,6 +55,7 @@ printed only if every phase passed.
 Needs a CUDA device and `nvcc`; imports torch and numpy (and OpenCV through
 the renderer), never JAX.
 """
+import collections
 import dataclasses
 import importlib.util
 import json
@@ -69,15 +81,17 @@ from gf_orb_slam2_tpu_torch.io.trajectory import recompose_trajectory  # noqa: E
 from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import GBA_THREAD, STAGES  # noqa: E402
 from gf_orb_slam2_tpu_torch.loopclosing.sim3solver import optimize_sim3, solve_sim3  # noqa: E402
 from gf_orb_slam2_tpu_torch.mapping import local_mapping  # noqa: E402
-from gf_orb_slam2_tpu_torch.matching import hamming as hamming_mod  # noqa: E402
+from gf_orb_slam2_tpu_torch.matching import hamming as hamming_mod, matcher  # noqa: E402
 from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim import global_ba  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.local_ba import (  # noqa: E402
     LocalBAProblem, local_bundle_adjustment,
 )
+from gf_orb_slam2_tpu_torch.optim import pose_opt  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.pose_graph import PoseGraphProblem, optimize_pose_graph  # noqa: E402
 from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror  # noqa: E402
 from gf_orb_slam2_tpu_torch.system import LOOP_THREAD, MAPPING_THREAD, System  # noqa: E402
+from gf_orb_slam2_tpu_torch.tracking import pnp, tracker as tracker_mod  # noqa: E402
 from gf_orb_slam2_tpu_torch.utils.transfer import to_device  # noqa: E402
 
 
@@ -115,6 +129,17 @@ LOOP_FRAMES = 140
 LOOP_ATE_BOUND_M = 0.15
 LOOP_ATE_RATIO = 0.75  # loop on against loop off, same frames
 SIM3_TOL = 1e-4        # the Sim3 stage, card against CPU (tests/test_torch_sim3.py)
+# the JAX package's relocalization gate (tests/test_reloc_rendered.py)
+RELOC_FRAMES = 110
+BLACKOUT = range(70, 76)
+REWIND = 16            # the camera reopens 16 frames back, inside the map
+RELOC_TAIL_ATE_M = 0.25
+# the JAX package's monocular gate (tests/test_mono_rendered.py)
+MONO_MIN_FRAMES = 100
+MONO_ATE_BOUND_M = 0.15
+# RGB-D on the room tour: no JAX figure exists on this scene; twice the
+# synchronous stereo gate, as bench.py's pipelined bound is twice its gate
+RGBD_ATE_BOUND_M = 0.10
 
 # published peaks of one H100 SXM (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -778,8 +803,10 @@ def phase_path_masks(captured):
     """The best-2 kernel checked (tolerance 0) and timed on the inputs of the
     last frame's tracking calls (stereo, motion search, local search,
     leftover search), of the last keyframe event's triangulation and fusion
-    searches, and of the last corrected loop event's guided Sim3 search and
-    search-and-fuse, beside the pair it replaces (1a + `masked_best2`)."""
+    searches, of the last corrected loop event's guided Sim3 search and
+    search-and-fuse, of the monocular initializer's window search and the
+    last monocular and RGB-D frames' tracking searches, beside the pair it
+    replaces (1a + `masked_best2`)."""
     if not any(label == "tracking" for label, *_ in captured):
         fail("no best-2 call was captured on the last frame")
     if not any(label == "triangulation" for label, *_ in captured):
@@ -793,11 +820,12 @@ def phase_path_masks(captured):
                  f"{tuple(mask.shape)}")
         calls.append(dict(time_best2(da, db, mask), mask="path", caller=label,
                           rows_with_candidates=int(mask.any(1).sum())))
-    for label in ("sim3_guided", "loop_fuse"):
+    for label in ("sim3_guided", "loop_fuse", "mono_init", "mono_tracking", "rgbd_tracking"):
         if not any(c[0] == label for c in captured):
-            fail(f"no {label} search was captured on the last loop event")
+            fail(f"no {label} search was captured")
     by_caller = {}
-    for label in ("tracking", "triangulation", "fusion", "sim3_guided", "loop_fuse"):
+    for label in ("tracking", "triangulation", "fusion", "sim3_guided", "loop_fuse",
+                  "mono_init", "mono_tracking", "rgbd_tracking"):
         mine = [c for c in calls if c["caller"] == label]
         if mine:
             by_caller[label] = {
@@ -945,13 +973,11 @@ def run_loop_circuit(imgs, poses, enabled):
     return slam, ate_rmse(np.stack(est), np.stack(ref)), frame_ms, cap
 
 
-def phase_loop():
+def phase_loop(circuit, render_s):
     """Loop closing on the card, with the JAX package's gate
     (tests/test_loop_rendered.py): the circuit with loop closing off, then on
     (kernel launch counts set to 0 just before, read just after)."""
-    t0 = time.perf_counter()
-    imgs, poses = render_loop()
-    render_s = time.perf_counter() - t0
+    imgs, poses = circuit
     _, ate_off, off_ms, _ = run_loop_circuit(imgs, poses, enabled=False)
     hamming_cuda.reset_launch_counts()
     slam, ate_on, on_ms, cap = run_loop_circuit(imgs, poses, enabled=True)
@@ -1080,6 +1106,401 @@ def phase_loop_solvers(pg, gba_window, sim3):
             fail(f"{what} on the card disagrees with the CPU: {r}")
 
 
+# ------------------------------------------- relocalization, mono, RGB-D
+class Probe:
+    """Around one System's methods (obj, name, label): attributes each
+    launch of the two Hamming kernels to the innermost labelled method it
+    was made in ("other" outside them), and keeps copies of the last `keep`
+    inputs per label of each kernel — the best-2 kernel's (da, db, mask),
+    the matrix kernel's (da, db) — for the labels in `record`."""
+
+    def __init__(self, targets, keep=4):
+        self.targets = targets
+        labels = [label for _, _, label in targets] + ["other"]
+        self.launches = {lb: dict.fromkeys(hamming_cuda.launch_counts, 0) for lb in labels}
+        self.best2 = {lb: collections.deque(maxlen=keep) for lb in labels}
+        self.matrix = {lb: collections.deque(maxlen=keep) for lb in labels}
+        self.record = set()
+        self._stack = []
+
+    def __enter__(self):
+        self._b2, self._mx = hamming_mod.distance_best2, hamming_mod.distance_matrix
+
+        def counted(fn, name, kept, n_in):
+            def run(*a):
+                label = self._stack[-1] if self._stack else "other"
+                if label in self.record:
+                    kept[label].append(tuple(x.clone() for x in a[:n_in]))
+                before = hamming_cuda.launch_counts[name]
+                out = fn(*a)
+                self.launches[label][name] += hamming_cuda.launch_counts[name] - before
+                return out
+            return run
+
+        def labelled(fn, label):
+            def run(*a, **k):
+                self._stack.append(label)
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self._stack.pop()
+            return run
+
+        hamming_mod.distance_best2 = counted(self._b2, BEST2, self.best2, 3)
+        hamming_mod.distance_matrix = counted(self._mx, MATRIX, self.matrix, 2)
+        for obj, name, label in self.targets:
+            setattr(obj, name, labelled(getattr(obj, name), label))
+        return self
+
+    def __exit__(self, *exc):
+        hamming_mod.distance_best2, hamming_mod.distance_matrix = self._b2, self._mx
+        for obj, name, _ in self.targets:
+            delattr(obj, name)  # the instance attribute: the class's method again
+
+    def calls(self, label, caller, last=None):
+        """The kept best-2 inputs of `label` as path_masks calls."""
+        kept = list(self.best2[label])
+        return [(caller, *c) for c in (kept if last is None else kept[-last:])]
+
+
+def system_targets(slam):
+    targets = [(slam.tracker, "process_frame", "tracking"),
+               (slam.tracker, "_relocalize", "reloc"),
+               (slam.tracker, "_monocular_initialization", "mono_init"),
+               (slam.mapper, "process_keyframe", "mapping")]
+    if slam.loop_closer is not None:
+        targets.append((slam.loop_closer, "process_keyframe", "loop"))
+    return targets
+
+
+def phase_reloc(circuit):
+    """tests/test_reloc_rendered.py on the card: the loop circuit (800
+    features, loop closing on — the KF database is the candidate source —
+    with the global BA inline), frames 70-75 black, the camera reopening 16
+    frames back; LOST in the blackout (or the frame after it), OK again
+    within 10 frames, no reset, and the tail frames' ATE."""
+    imgs, poses = circuit
+    slam = System(loop_config(True), device=DEVICE)
+    black = np.zeros((HEIGHT, WIDTH), np.uint8)
+    probe = Probe(system_targets(slam), keep=1)
+    probe.record = {"reloc"}
+    states, kfs, frame_ms, est, gt = [], [], [], {}, {}
+    kf_before = 0
+    step_args = []  # the inputs of the last `reloc_step` call: the accepted candidate's
+    reloc_step = tracker_mod.reloc_step
+
+    def keep_step(*a):
+        step_args[:] = a
+        return reloc_step(*a)
+
+    tracker_mod.reloc_step = keep_step
+    hamming_cuda.reset_launch_counts()
+    with probe:
+        for i in range(RELOC_FRAMES):
+            src = i if i < BLACKOUT[0] else max(i - REWIND, 0)
+            if i == BLACKOUT[0]:
+                kf_before = slam.store.n_keyframes
+            left, right = (black, black) if i in BLACKOUT else imgs[src]
+            t0 = time.perf_counter()
+            T = slam.track_stereo(left, right, i / 20.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(slam.state.name)
+            kfs.append(slam.store.n_keyframes)
+            if i not in BLACKOUT and slam.state.name == "OK":
+                R_cw, t_cw = poses[src]
+                est[i] = -T[:3, :3].T @ T[:3, 3]
+                gt[i] = -R_cw.T @ t_cw
+        slam.shutdown()
+    tracker_mod.reloc_step = reloc_step
+    launches = dict(hamming_cuda.launch_counts)
+    attempts = slam.tracker.reloc_stats
+    ok_after = [i for i in range(BLACKOUT[-1] + 1, RELOC_FRAMES) if states[i] == "OK"]
+    tail = [i for i in est if i > BLACKOUT[-1] + 4]
+    ate_tail = (ate_rmse(np.stack([est[i] for i in tail]), np.stack([gt[i] for i in tail]))
+                if len(tail) >= 3 else float("nan"))
+    accepted = [a for a in attempts if a.kf >= 0]
+    rec = {
+        "phase": "reloc", "frames": RELOC_FRAMES, "blackout": [BLACKOUT[0], BLACKOUT[-1]],
+        "rewind": REWIND, "lost_frames": [i for i, st in enumerate(states) if st == "LOST"],
+        "frames_to_recover": (ok_after[0] - BLACKOUT[-1]) if ok_after else None,
+        "keyframes_at_blackout": kf_before, "keyframes_min_after": min(kfs[BLACKOUT[0]:]),
+        "attempts": [dataclasses.asdict(a) for a in attempts],
+        "candidates_per_lost_frame": [a.n_candidates for a in attempts],
+        "candidate_source": [a.source for a in attempts],
+        "accepted": [dataclasses.asdict(a) for a in accepted],
+        "reloc_ms_per_lost_frame": spread([a.ms for a in attempts]),
+        "reloc_ms_per_success": spread([a.ms for a in accepted]),
+        "tail_frames": len(tail), "ate_tail_m": ate_tail, "ate_tail_bound_m": RELOC_TAIL_ATE_M,
+        "launches_run": launches, "launches_by_caller": probe.launches,
+        "frame_ms_median": statistics.median(frame_ms),
+        "accepted_candidate_by_stage": reloc_stages(step_args) if step_args else None,
+    }
+    emit(rec)
+    if "LOST" not in states[BLACKOUT[0]:BLACKOUT[-1] + 2]:
+        fail("the blackout did not make the tracker LOST")
+    if not ok_after or ok_after[0] > BLACKOUT[-1] + 10:
+        fail(f"no relocalization within 10 frames: {states[BLACKOUT[-1] + 1:BLACKOUT[-1] + 11]}")
+    if rec["keyframes_min_after"] < kf_before:
+        fail("the system reset instead of relocalizing")
+    if not accepted:
+        fail("no relocalization attempt was accepted")
+    if not (len(tail) >= 25 and ate_tail < RELOC_TAIL_ATE_M):
+        fail(f"post-relocalization tail: {len(tail)} frames, ATE {ate_tail} m")
+    if probe.launches["reloc"][MATRIX] < 1:
+        fail(f"relocalization launched {MATRIX} no time")
+    return rec, list(probe.matrix["reloc"])
+
+
+def reloc_stages(args):
+    """One relocalization candidate's `reloc_step` on its own inputs, whole
+    and by stage (1a `match_all`, the EPnP RANSAC, the LM polish): host ms
+    to a synchronized result (median of 5 after a warm-up call), and the
+    device kernels and device-busy ms of one call under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, scales, ref_desc, ref_valid, pt_pos, kp_uv, kp_oct, kp_ur, kp_valid, kp_desc, draws = args
+    cam = cfg.camera
+
+    def match():
+        return matcher.match_all(ref_desc, ref_valid, kp_desc, kp_valid,
+                                 th=matcher.TH_LOW, nn_ratio=0.75, mutual=False)
+
+    m = match()
+    kp_row = tracker_mod._scatter_matches(
+        m.idx, m.valid, torch.arange(ref_desc.shape[0], device=ref_desc.device), kp_uv.shape[0])
+    valid, pos = kp_row >= 0, tracker_mod._rows_of(kp_row, pt_pos)
+    d = draws(valid.sum())
+
+    def ransac():
+        return pnp.pnp_ransac(pos, kp_uv, valid, cam.fx, cam.fy, cam.cx, cam.cy, draws=d)
+
+    res_p = ransac()
+
+    def polish():
+        return pose_opt.pose_optimization(
+            res_p.R, res_p.t, pos, kp_uv, torch.where(valid, kp_ur, -1.0),
+            tracker_mod._inv_sigma2(scales, kp_oct), valid,
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+
+    out = {"matches": int(valid.sum())}
+    for name, fn in (("reloc_step", lambda: tracker_mod.reloc_step(*args)),
+                     ("match_all", match), ("epnp_ransac", ransac), ("pose_lm", polish)):
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages()
+              if "cuda" in str(getattr(e, "device_type", "")).lower()
+              and not getattr(e, "is_user_annotation", False)]
+        dev_us = sum(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0) for e in ka)
+        out[name] = {"ms": statistics.median(ms), "device_kernels": sum(e.count for e in ka),
+                     "device_busy_ms": dev_us / 1e3}
+    return out
+
+
+def mono_config(enabled):
+    """The configuration of the JAX package's monocular gate
+    (tests/test_mono_rendered.py): the loop circuit's camera without a
+    baseline, 800 features, the global BA inline."""
+    cam = CameraConfig(fx=FX, fy=FY, cx=CX, cy=CY, bf=0.0, th_depth=0.0)
+    return SystemConfig(
+        sensor=Sensor.MONOCULAR, camera=cam, orb=ORBConfig(n_features=800),
+        capacity=CapacityConfig(max_keypoints=1024, max_map_points=30000,
+                                max_keyframes=160, max_local_points=2048),
+        loop=LoopClosingConfig(enabled=enabled, synchronous_gba=True))
+
+
+def run_mono(circuit, enabled):
+    """One monocular run of the circuit's left images: returns (system,
+    Sim3-aligned ATE of the recomposed trajectory, frames in it, host ms per
+    frame, Probe)."""
+    imgs, poses = circuit
+    slam = System(mono_config(enabled), device=DEVICE)
+    probe = Probe(system_targets(slam), keep=4)
+    probe.record = {"mono_init"}
+    frame_ms = []
+    with probe:
+        for i, (left, _) in enumerate(imgs):
+            if i == len(imgs) - 1:
+                probe.record.add("tracking")  # the last frame's searches
+            t0 = time.perf_counter()
+            slam.track_monocular(left, i / 20.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        slam.shutdown()
+    gt = {i / 20.0: -R.T @ t for i, (R, t) in enumerate(poses)}
+    est, ref = [], []
+    for ts, T in recompose_trajectory(slam.tracker.relative_poses, slam.store):
+        est.append(-T[:3, :3].T @ T[:3, 3])
+        ref.append(gt[ts])
+    ate = ate_rmse(np.stack(est), np.stack(ref), with_scale=True) if len(est) >= 3 else float("nan")
+    return slam, ate, len(est), frame_ms, probe
+
+
+def phase_mono(circuit):
+    """tests/test_mono_rendered.py on the card: `track_monocular` on the loop
+    circuit, loop closing on (kernel launch counts set to 0 just before, read
+    just after), then off; ≥ 100 of 140 frames in the recomposed trajectory,
+    a loop corrected with a free scale, the Sim3-aligned ATE below 0.15 m
+    and below max(1.5 × loop off, 0.12 m)."""
+    hamming_cuda.reset_launch_counts()
+    slam, ate_on, n_on, on_ms, probe = run_mono(circuit, True)
+    launches = dict(hamming_cuda.launch_counts)
+    _, ate_off, n_off, off_ms, _ = run_mono(circuit, False)
+    lc = slam.loop_closer
+    corrected = [(st, ms) for st, ms in zip(lc.stats, lc.event_ms) if st.corrected]
+    inits = slam.tracker.init_stats
+    init = next((a for a in inits if a["ok"]), None)
+    steady = sorted(on_ms[5:])
+    rec = {
+        "phase": "mono", "frames": LOOP_FRAMES, "frames_in_trajectory_on": n_on,
+        "frames_in_trajectory_off": n_off,
+        "states_ok": sum(st.state == "OK" for st in slam.tracker.stats),
+        "init_frame": init["frame_id"] if init else None,
+        "init_model": ("H" if init["used_h"] else "F") if init else None,
+        "init_attempts": inits, "init_ms": spread([a["ms"] for a in inits]),
+        "keyframes": int(slam.store.n_keyframes), "map_points": int(slam.store.n_points),
+        "fix_scale": lc.fix_scale, "loop_events": len(lc.stats),
+        "corrected": [dataclasses.asdict(st) for st, _ in corrected],
+        "loop_ms_per_corrected_event": [ms for _, ms in corrected],
+        "ate_sim3_loop_on_m": ate_on, "ate_sim3_loop_off_m": ate_off,
+        "ate_bound_m": MONO_ATE_BOUND_M, "no_harm_bound_m": max(1.5 * ate_off, 0.12),
+        "frame_ms_median": statistics.median(steady),
+        "frame_ms_p90": steady[int(0.9 * (len(steady) - 1))],
+        "frame_ms_median_off": statistics.median(off_ms[5:]),
+        "launches_run": launches, "launches_by_caller": probe.launches,
+    }
+    emit(rec)
+    if n_on < MONO_MIN_FRAMES or n_off < MONO_MIN_FRAMES:
+        fail(f"mono tracked {n_on} (loop on) / {n_off} (off) of {LOOP_FRAMES} frames")
+    if init is None:
+        fail("the monocular tracker never initialized")
+    if not corrected or lc.fix_scale is not False:
+        fail(f"{len(corrected)} mono loops corrected, fix_scale {lc.fix_scale}")
+    if not (np.isfinite(ate_on) and ate_on < MONO_ATE_BOUND_M):
+        fail(f"mono ATE (Sim3-aligned) {ate_on} m >= {MONO_ATE_BOUND_M} m")
+    if not ate_on < max(1.5 * ate_off, 0.12):
+        fail(f"mono loop closing degraded ATE: on {ate_on} m, off {ate_off} m")
+    if probe.launches["mono_init"][BEST2] < 1 or probe.launches["tracking"][BEST2] < 1:
+        fail(f"mono initialization / tracking launched {BEST2} "
+             f"{probe.launches['mono_init'][BEST2]} / {probe.launches['tracking'][BEST2]} times")
+    calls = probe.calls("mono_init", "mono_init", last=1) + probe.calls("tracking", "mono_tracking")
+    return rec, calls
+
+
+def room_depth(R_cw, t_cw, world, w=WIDTH, h=HEIGHT):
+    """The renderer's own ray depth of one view, in metres: for every pixel
+    the nearest of the room's six faces along its ray, intersected as
+    tests/rendered_world.py's RoomWorld.render does. Its rays have camera
+    z = 1, so the ray parameter of the hit is the depth; 0 where no face is
+    hit."""
+    R_wc, o = R_cw.T, -R_cw.T @ t_cw
+    us, vs = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    d = np.stack([(us - CX) / FX, (vs - CY) / FY, np.ones_like(us)], -1).reshape(-1, 3) @ R_wc.T
+    best = np.full(d.shape[0], np.inf, np.float32)
+    W2, H2, L = world.W / 2, world.H / 2, world.L
+    planes = [(2, L, (0, -W2, W2), (1, -H2, H2)), (2, 0.0, (0, -W2, W2), (1, -H2, H2)),
+              (0, -W2, (2, 0.0, L), (1, -H2, H2)), (0, W2, (2, 0.0, L), (1, -H2, H2)),
+              (1, H2, (0, -W2, W2), (2, 0.0, L)), (1, -H2, (0, -W2, W2), (2, 0.0, L))]
+    for ax, val, (ua, ulo, uhi), (va, vlo, vhi) in planes:
+        dz = d[:, ax]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t_hit = (val - o[ax]) / dz
+            pu = o[ua] + t_hit * d[:, ua]
+            pv = o[va] + t_hit * d[:, va]
+        ok = ((np.abs(dz) > 1e-9) & (t_hit > 0.05) & (t_hit < best)
+              & (pu >= ulo) & (pu <= uhi) & (pv >= vlo) & (pv <= vhi))
+        best[ok] = t_hit[ok]
+    return np.where(np.isfinite(best), best, 0.0).astype(np.float32).reshape(h, w)
+
+
+def phase_rgbd(imgs, gt, stereo_ate):
+    """`track_rgbd` on the room tour's 150 frames at the headline
+    configuration (synchronous local mapping) with `Sensor.RGBD`: the left
+    images and the renderer's ray depth in metres (depth_map_factor 1). No
+    JAX figure exists on this scene: the gate is 150/150 OK from frame 0 and
+    ATE < 0.10 m, twice the synchronous stereo gate."""
+    base = headline_config()
+    cfg = base.replace(sensor=Sensor.RGBD,
+                       camera=dataclasses.replace(base.camera, depth_map_factor=1.0))
+    world = RoomWorld(width=9.0, height=5.5, length=13.0)
+    poses = trajectory_tour(TOUR_FRAMES)[:N_FRAMES]
+    t0 = time.perf_counter()
+    depths = [room_depth(R, t, world) for R, t in poses]
+    depth_s = time.perf_counter() - t0
+    slam = System(cfg, device=DEVICE)
+    probe = Probe(system_targets(slam), keep=4)
+    est, frame_ms = [], []
+    hamming_cuda.reset_launch_counts()
+    with probe:
+        for i, ((left, _), depth) in enumerate(zip(imgs, depths)):
+            if i == N_FRAMES - 1:
+                probe.record = {"tracking"}
+            t0 = time.perf_counter()
+            T = slam.track_rgbd(left, depth, i / 20.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            est.append(-T[:3, :3].T @ T[:3, 3])
+        slam.shutdown()
+    launches = dict(hamming_cuda.launch_counts)
+    stats = slam.tracker.stats
+    est = np.stack(est)
+    ate = ate_rmse(est, gt)
+    steady = sorted(frame_ms[5:])
+    rec = {
+        "phase": "rgbd", "frames": N_FRAMES, "depth_render_s": depth_s,
+        "init_keypoints": stats[0].n_features, "states_ok": sum(st.state == "OK" for st in stats),
+        "fused_frames": sum(st.path == "fused" for st in stats),
+        "keyframe_events": sum(bool(st.created_kf) for st in stats),
+        "mapper_events": len(slam.mapper.stats), "map_points": int(slam.store.n_points),
+        "ate_rmse_m": ate, "ate_bound_m": RGBD_ATE_BOUND_M, "ate_stereo_main_path_m": stereo_ate,
+        "frame_ms_median": statistics.median(steady),
+        "frame_ms_p90": steady[int(0.9 * (len(steady) - 1))],
+        "launches_run": launches, "launches_by_caller": probe.launches,
+    }
+    emit(rec)
+    if stats[0].state != "OK":
+        fail(f"RGB-D frame 0 did not initialise: {stats[0]}")
+    if any(st.state != "OK" for st in stats):
+        fail(f"RGB-D tracking left OK: {[(st.frame_id, st.state) for st in stats if st.state != 'OK'][:10]}")
+    if not (np.isfinite(est).all() and ate < RGBD_ATE_BOUND_M):
+        fail(f"RGB-D ATE {ate} m >= {RGBD_ATE_BOUND_M} m")
+    if probe.launches["tracking"][BEST2] < 1 or probe.launches["mapping"][BEST2] < 1:
+        fail(f"RGB-D tracking / mapping launched {BEST2} {probe.launches['tracking'][BEST2]} / "
+             f"{probe.launches['mapping'][BEST2]} times")
+    return rec, probe.calls("tracking", "rgbd_tracking")
+
+
+def phase_reloc_matrix(captured):
+    """The matrix kernel checked (tolerance 0) and timed on the inputs of the
+    accepted relocalization's `match_all`, beside its plain version."""
+    if not captured:
+        fail("no matrix input was captured on the relocalization")
+    out = []
+    for da, db in captured:
+        got = hamming_cuda.hamming_distance_matrix(da, db)
+        if not torch.equal(got, hamming_cuda.hamming_distance_matrix_ref(da, db)):
+            fail(f"{MATRIX} disagrees with its plain version on the relocalization's inputs")
+        n, m = da.shape[0], db.shape[0]
+        rec = {"n": n, "m": m, "caller": "reloc", "mask": "path",
+               "ms": time_cuda_graph(lambda: hamming_cuda.hamming_distance_matrix(da, db), 30, 20),
+               "call_ms": time_cuda(lambda: hamming_cuda.hamming_distance_matrix(da, db), 30, 20),
+               "plain_ms": time_cuda(lambda: hamming_cuda.hamming_distance_matrix_ref(da, db), 5, 2)}
+        rec.update(matrix_bound_ms(n, m))
+        out.append(rec)
+    emit({"phase": "reloc_matrix", "tolerance": 0, "calls": out})
+    return out
+
+
 def phase_local_ba(assembled):
     """The last keyframe event's local BA problem: solved on the card against
     the same problem solved by the port on the CPU, then through the
@@ -1143,8 +1564,15 @@ def main():
     render_s = time.perf_counter() - t0
     run, captured, ba_problem = phase_main_path(imgs, gt, render_s)
     pipelined = phase_pipelined(imgs, gt, run["ate_rmse_m"])
-    loop, loop_calls, pose_graph, gba_window, sim3 = phase_loop()
-    path_calls = phase_path_masks(captured + loop_calls)
+    t0 = time.perf_counter()
+    circuit = render_loop()
+    circuit_render_s = time.perf_counter() - t0
+    loop, loop_calls, pose_graph, gba_window, sim3 = phase_loop(circuit, circuit_render_s)
+    reloc, reloc_matrix = phase_reloc(circuit)
+    mono, mono_calls = phase_mono(circuit)
+    rgbd, rgbd_calls = phase_rgbd(imgs, gt, run["ate_rmse_m"])
+    path_calls = phase_path_masks(captured + loop_calls + mono_calls + rgbd_calls)
+    matrix_calls = phase_reloc_matrix(reloc_matrix)
     phase_local_ba(ba_problem)
     phase_loop_solvers(pose_graph, gba_window, sim3)
     # the best-2 kernel's headline numbers are those on the path's own masks,
@@ -1154,6 +1582,7 @@ def main():
     head = shapes[0]
     best2.update({k: head[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}, shapes=shapes)
+    kernels[MATRIX]["shapes"] = kernels[MATRIX]["shapes"] + matrix_calls
     pl = pipelined["kernel_launches"]
     emit({"kernels": [dict(rec, launches=run["kernel_launches"][name],
                            launches_mapping=run["kernel_launches_mapping"][name],
@@ -1161,7 +1590,13 @@ def main():
                            launches_pipelined_mapping=pl["mapping"][name],
                            launches_pipelined_loop=pl["loop"][name] + pl["gba"][name],
                            launches_loop_path=loop["launches_run"][name],
-                           launches_loop_closer=loop["launches_loop"][name])
+                           launches_loop_closer=loop["launches_loop"][name],
+                           launches_reloc_path=reloc["launches_run"][name],
+                           launches_reloc=reloc["launches_by_caller"]["reloc"][name],
+                           launches_mono_path=mono["launches_run"][name],
+                           launches_mono_by_caller={c: n[name] for c, n in
+                                                    mono["launches_by_caller"].items()},
+                           launches_rgbd_path=rgbd["launches_run"][name])
                       for name, rec in kernels.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

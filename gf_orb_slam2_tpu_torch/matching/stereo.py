@@ -119,3 +119,22 @@ def _sad_curve(img_l, img_r, uv_l, uv_r):
     win = strip.unfold(2, 2 * W + 1, 1)  # [N,11,2R+1,11] sliding windows
     win = win - win[:, W : W + 1, :, W : W + 1]
     return torch.abs(pl[:, :, None, :] - win).sum((1, 3))
+
+
+def depth_to_disparity(kp_uv, kp_valid, depth_map, bf, depth_factor=1.0):
+    """RGB-D: sample the depth map at the rounded keypoints → virtual right
+    coordinates (reference: ComputeStereoFromRGBD Frame.cc:1606). Rounding is
+    half to even and the sample position is clamped to the image, as in the
+    JAX package; `bf / depth` is a true division (a tensor's `__rtruediv__`
+    multiplies by the reciprocal instead)."""
+    x = torch.round(kp_uv[:, 0]).to(torch.int64)
+    y = torch.round(kp_uv[:, 1]).to(torch.int64)
+    h, w = depth_map.shape
+    d = depth_map[torch.clamp(y, 0, h - 1), torch.clamp(x, 0, w - 1)] * depth_factor
+    ok = kp_valid & (d > 0)
+    u_r = kp_uv[:, 0] - torch.div(torch.full_like(d, bf), torch.clamp(d, min=1e-6))
+    return StereoMatches(
+        u_right=torch.where(ok, u_r, -1.0),
+        depth=torch.where(ok, d, -1.0),
+        valid=ok,
+    )

@@ -2,7 +2,8 @@
 
 Replacement for ORB_SLAM2::System (reference: include/System.h:69,
 src/System.cc:43): constructs the map, the tracker and the local mapper,
-exposes per-frame TrackStereo, reset and trajectory savers.
+exposes per-frame TrackStereo / TrackRGBD / TrackMonocular, forced
+relocalization and re-initialization, reset and trajectory savers.
 
 Two drivers:
 - `track_stereo`: one frame at a time — the frontend and the tracking step
@@ -26,9 +27,14 @@ map; live tracking learns it through `Tracker.notify_map_rebase` and applies
 it before its next frame. The global BA after a correction runs on a
 detached thread unless `loop.synchronous_gba`.
 
-Relocalization, the mono/RGB-D sensors and MIH hashing are not part of this
-package yet; the options that would ask for them raise instead of being
-ignored.
+`track_rgbd` and `track_monocular` are synchronous entries of their own:
+an RGB-D frame samples its depth map at the keypoints and initializes as a
+stereo frame does; a monocular tracker bootstraps from two views
+(tracking/initializer.py) and closes loops with a free scale. A LOST
+tracker relocalizes against the keyframe database's candidates.
+
+MIH hashing is not part of this package yet; the option that would ask for
+it raises instead of being ignored.
 """
 from __future__ import annotations
 
@@ -278,6 +284,20 @@ class System:
         frame = self._build_stereo_frame(im_left, im_right, timestamp)
         return self._track(frame)
 
+    def track_rgbd(self, im, depth_map, timestamp: float) -> np.ndarray:
+        """Reference: System::TrackRGBD (System.cc:214) → 4x4 Tcw. The depth
+        map is in the units of `camera.depth_map_factor` (raw sensor values
+        divided by it give metres; a factor of 0 or 1 takes them as metres)."""
+        assert self.cfg.sensor == Sensor.RGBD
+        frame = self._build_rgbd_frame(im, depth_map, timestamp)
+        return self._track(frame)
+
+    def track_monocular(self, im, timestamp: float) -> np.ndarray:
+        """Reference: System::TrackMonocular (System.cc:282) → 4x4 Tcw."""
+        assert self.cfg.sensor == Sensor.MONOCULAR
+        frame = self._build_mono_frame(im, timestamp)
+        return self._track(frame)
+
     def track_stereo_pipelined(self, im_left, im_right, timestamp: float):
         """Streaming stereo tracking: submit this frame and return the list
         of (frame_id, Tcw) results completed by THIS call — normally one,
@@ -399,9 +419,13 @@ class System:
         with self.store.lock:
             self.tracker.apply_pending_rebase()
         st = self.tracker.process_frame(frame)
-        # hard reset when lost far too long (reference: System.cc:195-209)
+        # hard reset when lost right after a monocular initialization
+        # (reference: Tracking.cc:813 — lost with ≤ 5 KFs → System::Reset) or
+        # lost far too long (System.cc:195-209)
         if self.tracker.state == TrackState.LOST and not self.cfg.localization_only:
-            if self.tracker.n_lost > self.cfg.tracking.max_lost_frames:
+            if self.store.n_keyframes <= 5 and self.cfg.sensor == Sensor.MONOCULAR:
+                self.reset()
+            elif self.tracker.n_lost > self.cfg.tracking.max_lost_frames:
                 self.reset()
         if st.created_kf and not self.cfg.localization_only:
             self._keyframe_event(self.tracker.ref_kf)
@@ -532,6 +556,37 @@ class System:
         assert set(out) == set(HOST_FIELDS)
         return out
 
+    def _frontend_mono_impl(self, im, depth_map=None):
+        """im: [H,W] on the device (uint8 or float); depth_map: [H,W] or None
+        → dict keyed by HOST_FIELDS. Without a depth map a keypoint has no
+        right coordinate and no depth (-1); with one, both come from the depth
+        at the rounded keypoint (matching/stereo.depth_to_disparity)."""
+        f = self._pad_feats(self.extractor.extract_batch(im[None]))
+        uv, octv, ang, desc, resp, valid = (a[0] for a in f)
+        if any(self.cfg.camera.dist):
+            uv = cam_mod.undistort_keypoints(self._pin, uv)
+        if depth_map is None:
+            ur = torch.full((self.n_kp,), -1.0, device=uv.device)
+            dep = torch.full((self.n_kp,), -1.0, device=uv.device)
+        else:
+            dmf = self.cfg.camera.depth_map_factor
+            factor = 1.0 / dmf if dmf not in (0, 1) else 1.0
+            sm = stereo_mod.depth_to_disparity(uv, valid, depth_map.to(torch.float32),
+                                               self.cfg.camera.bf, factor)
+            ur, dep = sm.u_right, sm.depth
+        return dict(uv=uv, octave=octv, angle=ang, desc=desc, response=resp,
+                    valid=valid, u_right=ur, depth=dep)
+
+    def _build_rgbd_frame(self, im, depth_map, ts) -> Frame:
+        # ONE upload: the uint8 image and the depth map
+        d = to_device(dict(im=_to_u8(im), depth=np.asarray(depth_map, np.float32)),
+                      self.device)
+        return Frame.deferred(self.frame_id, ts, self._frontend_mono_impl(d["im"], d["depth"]))
+
+    def _build_mono_frame(self, im, ts) -> Frame:
+        im = torch.from_numpy(_to_u8(im)).to(self.device)
+        return Frame.deferred(self.frame_id, ts, self._frontend_mono_impl(im))
+
     def _build_stereo_frame(self, im_left, im_right, ts) -> Frame:
         # ONE upload for the image pair, as uint8 (cast on the device). The
         # frame's host arrays are fetched inside the tracker together with
@@ -544,6 +599,17 @@ class System:
     @property
     def state(self) -> TrackState:
         return self.tracker.state
+
+    def force_reloc(self):
+        """Reference: System::ForceRelocTracker (System.cc:798): the next
+        frame goes through relocalization."""
+        self.tracker.state = TrackState.LOST
+        self.tracker.velocity = None
+
+    def force_reinit(self):
+        """Reference: System::ForceInitTracker (System.cc:802): a full reset,
+        then initialization from scratch."""
+        self.reset()
 
     def reset(self):
         """Reference: System::Reset (System.cc:376) → Tracking::Reset. Waits

@@ -21,21 +21,25 @@ Stage → reference mapping:
   frame's matches chained on the device from the previous step, and the
   candidate pool gathered by id from the device map mirror (the pipelined
   driver, System.track_stereo_pipelined).
+- `reloc_step`     ← Relocalization (Tracking.cc:2615): brute-force
+  descriptor match vs one candidate KF, EPnP RANSAC (tracking/pnp.py), LM
+  polish; `Tracker._relocalize` tries the KF database's candidates.
 - KF policy        ← NeedNewKeyFrame/CreateNewKeyFrame (Tracking.cc:1914/2008).
 - Stereo bootstrap ← StereoInitialization (Tracking.cc:1078).
+- Mono bootstrap   ← MonocularInitialization + CreateInitialMapMonocular
+  (Tracking.cc:1141/1206): window matching, the batched H/F RANSAC of
+  tracking/initializer.py, the two-KF map at unit median depth.
 - Velocity model   ← mVelocity update (Tracking.cc:796).
 
-Not part of this package yet: relocalization (a LOST tracker stays LOST
-until the System resets it), monocular initialization, the ChArUco anchor,
-hashed local maps, planner odometry and the map rebase after a loop
-correction.
+Not part of this package yet: the ChArUco anchor, hashed local maps and
+planner odometry.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
-import warnings
+import time
 from typing import Optional
 
 import numpy as np
@@ -47,7 +51,7 @@ from gf_orb_slam2_tpu_torch.matching import matcher
 from gf_orb_slam2_tpu_torch.optim import pose_opt
 from gf_orb_slam2_tpu_torch.selection import good_feature, observability
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
-from gf_orb_slam2_tpu_torch.tracking import projection
+from gf_orb_slam2_tpu_torch.tracking import initializer, pnp, projection
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
 from gf_orb_slam2_tpu_torch.utils.transfer import desc_to_torch, to_device, to_host
 
@@ -74,6 +78,23 @@ class TrackStats:
     n_inliers: int = 0
     created_kf: bool = False
     path: str = ""  # which tracking path served the frame (init/fused/…)
+
+
+@dataclasses.dataclass
+class RelocStats:
+    """One relocalization attempt (a LOST frame): where its candidates came
+    from ("kfdb" or "recent"), how many were solved (a candidate with < 15
+    map points is skipped unsolved), the accepted KF (-1: none), its EPnP and
+    LM inliers, and the host ms of the attempt."""
+
+    frame_id: int
+    source: str
+    n_candidates: int
+    n_solved: int = 0
+    kf: int = -1
+    n_pnp_inliers: int = 0
+    n_inliers: int = 0
+    ms: float = 0.0
 
 
 # ====================================================== device-side steps
@@ -296,6 +317,35 @@ def fused_track(
     return res_m, kp_row_m, res_l, kp_row_l, kp_row_add, n_vis
 
 
+def reloc_step(
+    cfg: SystemConfig, scales, ref_desc, ref_valid, pt_pos,
+    kp_uv, kp_oct, kp_ur, kp_valid, kp_desc, draws,
+):
+    """Relocalization against one candidate KF: descriptor match → EPnP
+    RANSAC → LM polish (reference: Relocalization Tracking.cc:2615 —
+    SearchByBoW + PnPsolver::iterate + PoseOptimization). `draws`: the
+    RANSAC's [256,6] draws, or a callable that makes them from the match
+    count (a 0-dim tensor, on the device: nothing is read back). Returns
+    (res, kp_row, pnp result)."""
+    cam = cfg.camera
+    m = matcher.match_all(ref_desc, ref_valid, kp_desc, kp_valid,
+                          th=matcher.TH_LOW, nn_ratio=0.75, mutual=False)
+    rows = torch.arange(ref_desc.shape[0], device=ref_desc.device)
+    kp_row = _scatter_matches(m.idx, m.valid, rows, kp_uv.shape[0])
+    kp_mp_valid = kp_row >= 0
+    kp_mp_pos = _rows_of(kp_row, pt_pos)
+    if callable(draws):
+        draws = draws(kp_mp_valid.sum())
+    res_p = pnp.pnp_ransac(kp_mp_pos, kp_uv, kp_mp_valid,
+                           cam.fx, cam.fy, cam.cx, cam.cy, draws=draws)
+    res = pose_opt.pose_optimization(
+        res_p.R, res_p.t, kp_mp_pos, kp_uv, torch.where(kp_mp_valid, kp_ur, -1.0),
+        _inv_sigma2(scales, kp_oct), kp_mp_valid,
+        cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+    )
+    return res, kp_row, res_p
+
+
 def _search_radius(cfg: SystemConfig) -> float:
     return 7.0 if cfg.sensor != Sensor.MONOCULAR else 15.0
 
@@ -431,6 +481,11 @@ class Tracker:
         # (notify_map_rebase / apply_pending_rebase)
         self.pending_map_rebase = None
         self.kfdb = None  # set by System once place recognition is up
+        self._last_reloc_frame = -10 ** 9
+        self.reloc_stats: list = []  # RelocStats per LOST frame
+        self._mono_init_frame: Optional[Frame] = None  # held reference view
+        self.init_stats: list = []  # per two-view attempt: frame, matches, ok, H?, ms
+        self._draw_gen = torch.Generator(device=self.device)
 
     # ---------------------------------------------------------- transfers
     def _up(self, a):
@@ -451,6 +506,30 @@ class Tracker:
         """The per-frame random stream of the lazier-greedy sampling."""
         self._generator.manual_seed(int(frame_id))
         return self._generator
+
+    def reloc_draws(self, frame_id: int, n_valid):
+        """The EPnP RANSAC's [256,6] draws for a LOST frame: indices in
+        [0, max(n_valid, 6)) into the candidate's matches in their order.
+        `n_valid` is a 0-dim tensor on the tracker's device. The default
+        draws from a generator seeded by the frame id, the same for every
+        candidate of a frame (as the JAX package's PRNGKey(frame_id));
+        override it to feed other draws."""
+        self._draw_gen.manual_seed(int(frame_id))
+        return pnp.draw_hypotheses(n_valid, self._draw_gen)
+
+    def init_draws(self, frame_id: int, n_valid):
+        """The two-view RANSAC's [256,8] draws (see `reloc_draws`)."""
+        self._draw_gen.manual_seed(int(frame_id))
+        return pnp.draw_hypotheses(n_valid, self._draw_gen, initializer.N_HYP,
+                                   initializer.SAMPLE)
+
+    def _min_inliers(self, frame_id: int) -> int:
+        """The local-map inlier gate, raised for a while after a
+        relocalization (reference: Tracking.cc:2087 mnLastRelocFrameId)."""
+        tcfg = self.cfg.tracking
+        if frame_id - self._last_reloc_frame < tcfg.max_frames_between_kf:
+            return tcfg.min_inliers_after_reloc
+        return tcfg.min_inliers_local_map
 
     def _fetch(self, frame: Frame, results: dict) -> dict:
         """ONE download per step: the step's results and, for a frame that
@@ -519,10 +598,11 @@ class Tracker:
         st = TrackStats(frame_id=frame.frame_id)
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
             self.state = TrackState.NOT_INITIALIZED
-            if self.cfg.sensor not in (Sensor.STEREO, Sensor.RGBD):
-                raise NotImplementedError(
-                    "monocular initialization is not part of this package yet")
-            if self._stereo_initialization(frame):
+            if self.cfg.sensor in (Sensor.STEREO, Sensor.RGBD):
+                initialized = self._stereo_initialization(frame)
+            else:
+                initialized = self._monocular_initialization(frame)
+            if initialized:
                 self.state = TrackState.OK
                 st.created_kf = True
             st.state = self.state.name
@@ -547,14 +627,9 @@ class Tracker:
             elif not ok:
                 ok = self._track_reference_kf(frame, st)
                 st.path = "refkf"
-        else:  # LOST: relocalization is not ported — stay lost, say so
-            frame.ensure_host()
-            st.path = "lost"
-            if self.n_lost == 1:
-                warnings.warn(
-                    "tracking is LOST and relocalization is not part of this "
-                    "package yet: the tracker stays LOST until System.reset()",
-                    RuntimeWarning, stacklevel=2)
+        else:  # LOST
+            ok = self._relocalize(frame, st)
+            st.path = "reloc"
 
         if ok and not used_fused:
             ok = self._track_local_map(frame, st)
@@ -763,7 +838,7 @@ class Tracker:
         tracked = frame.mp_ids[frame.mp_ids >= 0]
         s.point_found[tracked] += 1
         s.point_visible[pool_ids] += 1
-        return int(d["n_inliers"]) >= self.cfg.tracking.min_inliers_local_map
+        return int(d["n_inliers"]) >= self._min_inliers(frame.frame_id)
 
     # ---------------------------------------------------- pipelined path
     def stream_ready(self) -> bool:
@@ -839,7 +914,7 @@ class Tracker:
         tracked = frame.mp_ids[frame.mp_ids >= 0]
         s.point_found[tracked] += 1
         s.point_visible[pool_ids] += 1
-        if int(d["n_inliers"]) >= self.cfg.tracking.min_inliers_local_map:
+        if int(d["n_inliers"]) >= self._min_inliers(frame.frame_id):
             self.state = TrackState.OK
             self.n_lost = 0
             self._refresh_cached_pool(frame)
@@ -938,7 +1013,60 @@ class Tracker:
         tracked = frame.mp_ids[frame.mp_ids >= 0]
         s.point_found[tracked] += 1
         s.point_visible[pts] += 1
-        return int(h["n_inl"]) >= self.cfg.tracking.min_inliers_local_map
+        return int(h["n_inl"]) >= self._min_inliers(frame.frame_id)
+
+    def _relocalize(self, frame: Frame, st: TrackStats) -> bool:
+        """Relocalization (reference: Tracking.cc:2615): KF-database BoW
+        candidates (when place recognition is up), else the 5 newest KFs,
+        newest first; per candidate one upload, `reloc_step` and one
+        download. A candidate with < 15 map points is skipped; the first
+        with ≥ 15 LM inliers after a successful EPnP RANSAC is taken."""
+        if not self.cfg.tracking.enable_reloc:
+            return False
+        t0 = time.perf_counter()
+        cands = []
+        if self.kfdb is not None:
+            cands = self.kfdb.detect_reloc_candidates(frame.desc, frame.valid)
+        rec = RelocStats(frame.frame_id, "kfdb" if cands else "recent", 0)
+        if not cands:
+            cands = list(reversed(self.store.valid_kf_ids()[-5:].tolist()))
+        rec.n_candidates = len(cands)
+        self.reloc_stats.append(rec)
+        s = self.store
+        kp = self._frame_dev(frame)
+        ok = False
+        for k in cands:
+            k = int(k)
+            ref_ids = s.resolve_replaced(s.kf_point[k])
+            rows = ref_ids >= 0
+            if rows.sum() < 15:
+                continue
+            pt_pos = np.zeros((self.n_kp, 3), np.float32)
+            pt_pos[rows] = s.point_pos[ref_ids[rows]]
+            d = to_device(dict(desc=s.kf_desc[k], valid=rows & s.kf_kp_valid[k],
+                               pos=pt_pos), self.device)
+            res, kp_row, res_p = reloc_step(
+                self.cfg, self._scales_dev, d["desc"], d["valid"], d["pos"],
+                kp["uv"], kp["octave"], kp["u_right"], kp["valid"], kp["desc"],
+                lambda n: self.reloc_draws(frame.frame_id, n))
+            h = self._fetch(frame, dict(
+                kp_row=kp_row, inl=res.inliers, R=res.R, t=res.t,
+                n_inl=res.n_inliers, pnp_ok=res_p.ok, n_pnp=res_p.n_inliers))
+            rec.n_solved += 1
+            if not bool(h["pnp_ok"]) or int(h["n_inl"]) < 15:
+                continue
+            kp_row, inl = h["kp_row"], h["inl"]
+            frame.mp_ids = np.where(kp_row >= 0, ref_ids[np.maximum(kp_row, 0)], -1).astype(np.int32)
+            frame.mp_ids[~inl] = -1
+            frame.R = h["R"]
+            frame.t = h["t"]
+            self.ref_kf = k
+            self._last_reloc_frame = frame.frame_id
+            rec.kf, rec.n_pnp_inliers, rec.n_inliers = k, int(h["n_pnp"]), int(h["n_inl"])
+            ok = True
+            break
+        rec.ms = (time.perf_counter() - t0) * 1e3
+        return ok
 
     # ---------------------------------------------------------- lifecycle
     def _stereo_initialization(self, frame: Frame) -> bool:
@@ -968,6 +1096,73 @@ class Tracker:
         s.update_connections(k)
         self.ref_kf = k
         self.last_kf_frame_id = frame.frame_id
+        return True
+
+    def _monocular_initialization(self, frame: Frame) -> bool:
+        """Reference: MonocularInitialization + CreateInitialMapMonocular
+        (Tracking.cc:1141/1206): hold a reference frame, window-match (kernel
+        1b through `match_window`), run the batched H/F RANSAC bootstrap, build
+        the two-KF map and normalize the scale to unit median depth. One
+        upload of the held frame and one download per attempt: the RANSAC
+        runs whatever the match count, whose check waits for the download."""
+        f0 = self._mono_init_frame
+        if f0 is None or f0.n_kp < 100:
+            self._mono_init_frame = frame if frame.n_kp >= 100 else None
+            return False
+        t0 = time.perf_counter()
+        kp = self._frame_dev(frame)
+        cam = self.cfg.camera
+        K = np.asarray([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], np.float32)
+        d = to_device(dict(uv=f0.uv, desc=f0.desc, valid=f0.valid, K=K), self.device)
+        m = matcher.match_window(d["uv"], d["desc"], d["valid"],
+                                 kp["uv"], kp["desc"], kp["valid"], window=100.0)
+        uv2 = kp["uv"][torch.clamp(m.idx, min=0)]
+        res = initializer.initialize(
+            d["uv"], uv2, m.valid, d["K"],
+            draws=self.init_draws(frame.frame_id, m.valid.sum()))
+        h = self._fetch(frame, dict(idx=m.idx, mval=m.valid, ok=res.ok, R=res.R, t=res.t,
+                                    points=res.points, inl=res.is_inlier,
+                                    used_h=res.used_h))
+        self.init_stats.append(dict(
+            frame_id=frame.frame_id, ref_frame_id=f0.frame_id,
+            n_matches=int(h["mval"].sum()), ok=bool(h["ok"]), used_h=bool(h["used_h"]),
+            ms=(time.perf_counter() - t0) * 1e3))
+        if int(h["mval"].sum()) < 100:
+            self._mono_init_frame = frame if frame.n_kp >= 100 else None
+            return False
+        if not bool(h["ok"]):
+            return False
+        # ---- build the initial map
+        s = self.store
+        idx, inl, X = h["idx"], h["inl"], h["points"]
+        # scale: unit median depth (reference: ComputeSceneMedianDepth → 1)
+        med = float(np.median(X[inl][:, 2]))
+        if med <= 0:
+            return False
+        X = X / med
+        R2, t2 = h["R"], (h["t"] / med).astype(np.float32)
+        k0 = s.add_keyframe(
+            np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+            f0.uv, f0.octave, f0.angle, f0.desc, f0.u_right, f0.depth,
+            f0.valid, f0.frame_id, f0.timestamp,
+        )
+        k1 = s.add_keyframe(
+            R2, t2, frame.uv, frame.octave, frame.angle, frame.desc,
+            frame.u_right, frame.depth, frame.valid, frame.frame_id,
+            frame.timestamp,
+        )
+        rows = np.nonzero(inl)[0]
+        cols = idx[rows].astype(np.int64)
+        ids = s.add_points_batch(X[rows].astype(np.float32), frame.desc[cols], k0, k0, rows)
+        s.add_observations_batch(ids, k1, cols)
+        s.update_normals_batch(ids, self.level_scales)
+        frame.mp_ids[cols] = ids
+        s.update_connections(k0)
+        s.update_connections(k1)
+        frame.R, frame.t = R2, t2
+        self.ref_kf = k1
+        self.last_kf_frame_id = frame.frame_id
+        self._mono_init_frame = None
         return True
 
     def _update_velocity(self, frame: Frame):
