@@ -48,14 +48,30 @@ initializer, a loop corrected with a free scale, the Sim3-aligned ATE), and
 initializer's window search, a monocular and an RGB-D tracking search) and
 the relocalization's matrix inputs join phase `path_masks`.
 
+Phases `hashing`, `map_io` and `hybrid` drive the rest of the System
+facade: hashed local maps on the loop circuit (tests/test_hashing_rendered.py:
+the multi-index hash past its 2000-point trigger, COMBINED local maps, the
+ATE against phase `loop`'s loop-off run; its search masks join
+`path_masks`), the main path's map saved, loaded into a fresh System in
+localization mode and relocalized against, then tracked through both
+drivers (tests/test_map_io.py's gates: the store equal after the load, OK
+within 5 frames and on 80 % of them, camera centres within 0.1 m, no
+keyframe added, the device map mirror equal to the store), and the room
+tour with the 13-state (hybrid) good-feature selection and planner
+odometry fed the ground-truth poses (every predicting frame predicted from
+the buffer, ATE < 0.10 m; the selection's ms and kernels beside the main
+path's). The `build` phase compiles the hash's host library (g++) beside
+the CUDA kernels.
+
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code. The last line is {"ok": true, "device": {...}} and is
 printed only if every phase passed.
 
-Needs a CUDA device and `nvcc`; imports torch and numpy (and OpenCV through
-the renderer), never JAX.
+Needs a CUDA device, `nvcc` and `g++`; imports torch and numpy (and OpenCV
+through the renderer), never JAX.
 """
 import collections
+import concurrent.futures
 import dataclasses
 import importlib.util
 import json
@@ -63,6 +79,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -73,10 +90,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from gf_orb_slam2_tpu_torch.config import (  # noqa: E402
-    CameraConfig, CapacityConfig, GFMatchingMode, GoodFeatureConfig,
-    LoopClosingConfig, ORBConfig, Sensor, SystemConfig, TrackingConfig,
+    CameraConfig, CapacityConfig, GFMatchingMode, GoodFeatureConfig, HashingConfig,
+    LocalMapMode, LoopClosingConfig, ORBConfig, Sensor, SystemConfig, TrackingConfig,
 )
-from gf_orb_slam2_tpu_torch.io.evaluation import ate_rmse  # noqa: E402
+from gf_orb_slam2_tpu_torch.hashing import mih as mih_mod  # noqa: E402
+from gf_orb_slam2_tpu_torch.io.evaluation import ate_rmse, umeyama_align  # noqa: E402
 from gf_orb_slam2_tpu_torch.io.trajectory import recompose_trajectory  # noqa: E402
 from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import GBA_THREAD, STAGES  # noqa: E402
 from gf_orb_slam2_tpu_torch.loopclosing.sim3solver import optimize_sim3, solve_sim3  # noqa: E402
@@ -89,6 +107,7 @@ from gf_orb_slam2_tpu_torch.optim.local_ba import (  # noqa: E402
 )
 from gf_orb_slam2_tpu_torch.optim import pose_opt  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.pose_graph import PoseGraphProblem, optimize_pose_graph  # noqa: E402
+from gf_orb_slam2_tpu_torch.selection import good_feature  # noqa: E402
 from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror  # noqa: E402
 from gf_orb_slam2_tpu_torch.system import LOOP_THREAD, MAPPING_THREAD, System  # noqa: E402
 from gf_orb_slam2_tpu_torch.tracking import pnp, tracker as tracker_mod  # noqa: E402
@@ -279,10 +298,18 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA kernels (nvcc, one process per source) and, beside them on a
+    thread of its own, the multi-index hash's host library (g++)."""
     t0 = time.perf_counter()
-    hamming_cuda.load(verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(mih_mod.build)
+        hamming_cuda.load(verbose=True)
+        mih_path = host.result()  # raises what the g++ build raised
+    mih_mod.load()
     emit({"phase": "build", "sources": sorted(SOURCES.values()),
-          "arch": "sm_90a", "seconds": round(time.perf_counter() - t0, 2)})
+          "arch": "sm_90a", "host_library": os.path.relpath(mih_path, ROOT),
+          "host_source": os.path.relpath(mih_mod.SOURCE, ROOT),
+          "seconds": round(time.perf_counter() - t0, 2)})
 
 
 class Tally:
@@ -507,6 +534,65 @@ def spread(values):
     return {"median": statistics.median(values), "max": max(values)} if values else None
 
 
+class KeepLast:
+    """Around `module.name`: keeps clones of the tensor arguments (and the
+    keyword arguments) of its last call."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.args = None
+
+    def __enter__(self):
+        self._fn = fn = getattr(self.module, self.name)
+
+        def run(*a, **k):
+            self.args = ([x.clone() if torch.is_tensor(x) else x for x in a], dict(k))
+            return fn(*a, **k)
+
+        setattr(self.module, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._fn)
+
+
+def profiled(fn, repeats=5):
+    """Host ms of `fn` to a synchronized result (median of `repeats` after a
+    warm-up call), and the device kernels and device-busy ms of one call
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = [e for e in prof.key_averages()
+          if "cuda" in str(getattr(e, "device_type", "")).lower()
+          and not getattr(e, "is_user_annotation", False)]
+    dev_us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0) for e in ka)
+    return {"ms": statistics.median(ms), "device_kernels": sum(e.count for e in ka),
+            "device_busy_ms": dev_us / 1e3}
+
+
+def selection_cost(kept):
+    """The lazier-greedy good-feature selection of a run's last frame, on its
+    own inputs, timed and profiled on the card (its draws are taken again)."""
+    (obs_mats, valid, n_select, gen), kw = kept.args
+    gen = torch.Generator(device=obs_mats.device)
+    gen.manual_seed(0)
+    out = profiled(lambda: good_feature.lazier_greedy_select(obs_mats, valid, n_select, gen, **kw))
+    return dict(out, D=int(obs_mats.shape[-1]), candidates=int(valid.sum()),
+                pool_slots=int(valid.shape[0]), n_select=int(n_select))
+
+
 def render_tour():
     """The first N_FRAMES stereo pairs of the room tour and the ground-truth
     camera centres."""
@@ -526,7 +612,7 @@ def phase_main_path(imgs, gt, render_s):
 
     slam = System(headline_config(), device=DEVICE)  # the card: no CPU fallback
     est, frame_ms = [], []
-    with Capture(slam) as cap:
+    with Capture(slam) as cap, KeepLast(good_feature, "lazier_greedy_select") as sel:
         hamming_cuda.reset_launch_counts()
         for i, (left, right) in enumerate(imgs):
             if i == N_FRAMES - 1:  # the last frame's tracking calls
@@ -587,6 +673,7 @@ def phase_main_path(imgs, gt, render_s):
         torch.cuda.synchronize()
         fe.append((time.perf_counter() - t0) * 1e3)
     rec["frontend_ms_median"] = statistics.median(fe)
+    rec["selection_last_frame"] = selection_cost(sel)
     rec["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     emit(rec)
     slam.shutdown()
@@ -618,7 +705,7 @@ def phase_main_path(imgs, gt, render_s):
         fail(f"ATE {ate:.4f} m >= {ATE_BOUND_M} m")
     if cap.ba_problem is None:
         fail("no local BA problem was assembled")
-    return rec, cap.calls, cap.ba_problem
+    return rec, cap.calls, cap.ba_problem, dict(system=slam, est=est)
 
 
 def _mirror_stale_rows(store):
@@ -804,9 +891,9 @@ def phase_path_masks(captured):
     last frame's tracking calls (stereo, motion search, local search,
     leftover search), of the last keyframe event's triangulation and fusion
     searches, of the last corrected loop event's guided Sim3 search and
-    search-and-fuse, of the monocular initializer's window search and the
-    last monocular and RGB-D frames' tracking searches, beside the pair it
-    replaces (1a + `masked_best2`)."""
+    search-and-fuse, of the monocular initializer's window search, the last
+    monocular, RGB-D and hashed-local-map frames' tracking searches, beside
+    the pair it replaces (1a + `masked_best2`)."""
     if not any(label == "tracking" for label, *_ in captured):
         fail("no best-2 call was captured on the last frame")
     if not any(label == "triangulation" for label, *_ in captured):
@@ -820,12 +907,13 @@ def phase_path_masks(captured):
                  f"{tuple(mask.shape)}")
         calls.append(dict(time_best2(da, db, mask), mask="path", caller=label,
                           rows_with_candidates=int(mask.any(1).sum())))
-    for label in ("sim3_guided", "loop_fuse", "mono_init", "mono_tracking", "rgbd_tracking"):
+    for label in ("sim3_guided", "loop_fuse", "mono_init", "mono_tracking", "rgbd_tracking",
+                  "hashing_tracking"):
         if not any(c[0] == label for c in captured):
             fail(f"no {label} search was captured")
     by_caller = {}
     for label in ("tracking", "triangulation", "fusion", "sim3_guided", "loop_fuse",
-                  "mono_init", "mono_tracking", "rgbd_tracking"):
+                  "mono_init", "mono_tracking", "rgbd_tracking", "hashing_tracking"):
         mine = [c for c in calls if c["caller"] == label]
         if mine:
             by_caller[label] = {
@@ -951,7 +1039,6 @@ def run_loop_circuit(imgs, poses, enabled):
     """One run of the circuit: returns (system, recomposed-trajectory ATE,
     host ms per frame, LoopCapture or None)."""
     slam = System(loop_config(enabled), device=DEVICE)
-    gt = {i / 20.0: -R.T @ t for i, (R, t) in enumerate(poses)}
     cap = LoopCapture(slam) if enabled else None
     frame_ms = []
     if cap is not None:
@@ -966,11 +1053,17 @@ def run_loop_circuit(imgs, poses, enabled):
     finally:
         if cap is not None:
             cap.__exit__()
+    return slam, recomposed_ate(slam, poses), frame_ms, cap
+
+
+def recomposed_ate(slam, poses):
+    """ATE of the trajectory recomposed from the KFs (frames at i / 20 s)."""
+    gt = {i / 20.0: -R.T @ t for i, (R, t) in enumerate(poses)}
     est, ref = [], []
     for ts, T in recompose_trajectory(slam.tracker.relative_poses, slam.store):
         est.append(-T[:3, :3].T @ T[:3, 3])
         ref.append(gt[ts])
-    return slam, ate_rmse(np.stack(est), np.stack(ref)), frame_ms, cap
+    return ate_rmse(np.stack(est), np.stack(ref))
 
 
 def phase_loop(circuit, render_s):
@@ -1257,8 +1350,6 @@ def reloc_stages(args):
     and by stage (1a `match_all`, the EPnP RANSAC, the LM polish): host ms
     to a synchronized result (median of 5 after a warm-up call), and the
     device kernels and device-busy ms of one call under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     cfg, scales, ref_desc, ref_valid, pt_pos, kp_uv, kp_oct, kp_ur, kp_valid, kp_desc, draws = args
     cam = cfg.camera
 
@@ -1286,24 +1377,7 @@ def reloc_stages(args):
     out = {"matches": int(valid.sum())}
     for name, fn in (("reloc_step", lambda: tracker_mod.reloc_step(*args)),
                      ("match_all", match), ("epnp_ransac", ransac), ("pose_lm", polish)):
-        fn()
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ka = [e for e in prof.key_averages()
-              if "cuda" in str(getattr(e, "device_type", "")).lower()
-              and not getattr(e, "is_user_annotation", False)]
-        dev_us = sum(getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0) for e in ka)
-        out[name] = {"ms": statistics.median(ms), "device_kernels": sum(e.count for e in ka),
-                     "device_busy_ms": dev_us / 1e3}
+        out[name] = profiled(fn)
     return out
 
 
@@ -1480,6 +1554,268 @@ def phase_rgbd(imgs, gt, stereo_ate):
     return rec, probe.calls("tracking", "rgbd_tracking")
 
 
+# ------------------------------------------- hashing, map IO, hybrid state
+HASH_MIN_POINTS = 2000   # tests/test_hashing_rendered.py: the map crosses the trigger
+HASH_MIN_QUERIES = 20
+MAP_IO_SYNC = range(100, 125)       # tour frames replayed through track_stereo
+MAP_IO_PIPELINED = range(125, 150)  # then through track_stereo_pipelined
+MAP_IO_OK_SHARE = 0.8
+MAP_IO_FIRST_OK = 5       # OK within this many frames of the first
+MAP_IO_CENTRE_M = 0.1     # tests/test_map_io.py: camera-centre error of an OK frame
+HYBRID_ATE_BOUND_M = 0.10  # no JAX figure for this mode: twice the synchronous gate
+
+
+def hashing_config():
+    """tests/test_hashing_rendered.py:36-46: the loop circuit's configuration
+    with hashing on, COMBINED local maps, loop closing off."""
+    return loop_config(False).replace(
+        hashing=HashingConfig(enabled=True),
+        tracking=TrackingConfig(local_map_mode=LocalMapMode.COMBINED))
+
+
+def phase_hashing(circuit, ate_covis):
+    """Hashed local maps on the loop circuit (tests/test_hashing_rendered.py):
+    the map crosses the 2000-point trigger, the tables serve > 20 queries,
+    online table selection keeps `n_active` tables, and the recomposed ATE
+    stays within max(1.2 c, c + 0.02) of phase `loop`'s loop-off run c (the
+    same configuration without hashing: the JAX test's covisibility arm)."""
+    imgs, poses = circuit
+    slam = System(hashing_config(), device=DEVICE)
+    mih = slam.tracker.mih
+    if mih is None or mih is not slam.mapper.mih:
+        fail("hashing on built no multi-index hash shared by the tracker and the mapper")
+    queries, budgets = [], [mih.candidate_budget]  # (frame, host ms, candidates)
+    query, dynamics = mih.query, mih.update_dynamics
+
+    def timed_query(desc, max_out=None):
+        t0 = time.perf_counter()
+        out = query(desc, max_out)
+        queries.append((slam.frame_id, (time.perf_counter() - t0) * 1e3, int(out.size)))
+        return out
+
+    def kept_dynamics(n, *a, **k):
+        dynamics(n, *a, **k)
+        budgets.append(mih.candidate_budget)
+
+    mih.query, mih.update_dynamics = timed_query, kept_dynamics
+    probe = Probe(system_targets(slam), keep=4)
+    frame_ms = []
+    hamming_cuda.reset_launch_counts()
+    with probe:
+        for i, (left, right) in enumerate(imgs):
+            if i == LOOP_FRAMES - 1:  # the last frame's searches join path_masks
+                probe.record = {"tracking"}
+            t0 = time.perf_counter()
+            slam.track_stereo(left, right, i / 20.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        slam.shutdown()
+    launches = dict(hamming_cuda.launch_counts)
+    del mih.query, mih.update_dynamics
+    ate = recomposed_ate(slam, poses)
+    stats = slam.tracker.stats
+    served = sorted({f for f, _, _ in queries})
+    per_frame_ms = collections.defaultdict(float)
+    for f, ms, _ in queries:
+        per_frame_ms[f] += ms
+    bound = max(1.2 * ate_covis, ate_covis + 0.02)
+    rec = {
+        "phase": "hashing", "frames": LOOP_FRAMES,
+        "states_ok": sum(st.state == "OK" for st in stats),
+        "map_points": int(slam.store.n_points), "keyframes": int(slam.store.n_keyframes),
+        "trigger": slam.cfg.hashing.map_size_trigger, "n_queries": mih.n_queries,
+        "frames_served_by_hashing": len(served),
+        "first_hashed_frame": served[0] if served else None,
+        "candidates_per_query": spread([n for _, _, n in queries]),
+        "candidate_budget_range": [min(budgets), max(budgets)],
+        "pool_size_per_frame": spread([st.n_local_points for st in stats[1:]]),
+        "query_host_ms_per_frame": spread(list(per_frame_ms.values())),
+        "insert_and_table_selection_host_ms_per_kf_event":
+            spread([e["hash"] for e in slam.mapper.event_ms]),
+        "active_tables": mih.active_tables.tolist(), "n_active": mih.n_active,
+        "table_sizes": mih.table_sizes().tolist(),
+        "ate_m": ate, "ate_covisibility_m": ate_covis, "ate_bound_m": bound,
+        "frame_ms_median": statistics.median(frame_ms),
+        "launches_run": launches, "launches_by_caller": probe.launches,
+    }
+    emit(rec)
+    if slam.store.n_points <= HASH_MIN_POINTS:
+        fail(f"map too small to trigger hashing: {slam.store.n_points} points")
+    if mih.n_queries <= HASH_MIN_QUERIES:
+        fail(f"the hash tables served {mih.n_queries} queries (<= {HASH_MIN_QUERIES})")
+    if len(mih.active_tables) != mih.n_active:
+        fail(f"{len(mih.active_tables)} active tables, {mih.n_active} asked for")
+    if not (np.isfinite(ate) and ate < bound):
+        fail(f"hash-combined ATE {ate} m, covisibility {ate_covis} m (bound {bound} m)")
+    if probe.launches["tracking"][BEST2] < 1:
+        fail(f"hashed tracking launched {BEST2} no time")
+    return rec, probe.calls("tracking", "hashing_tracking")
+
+
+def _npz_arrays(path):
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_map_io(imgs, gt, main):
+    """tests/test_map_io.py on the card, on the main path's map: saved,
+    loaded into a fresh System of the same configuration in localization
+    mode, then tour frames 100-124 through `track_stereo` and 125-149
+    through `track_stereo_pipelined` + `flush_pipeline()`. The centre error
+    of a replayed frame is taken in the ground truth's frame through the
+    main path's own alignment (its ATE fit)."""
+    src = main["system"]
+    with tempfile.TemporaryDirectory() as d:
+        path, again = os.path.join(d, "tour.npz"), os.path.join(d, "again.npz")
+        t0 = time.perf_counter()
+        src.save_map(path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        slam = System(headline_config(), device=DEVICE)
+        t0 = time.perf_counter()
+        slam.load_map(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        slam.activate_localization_mode()
+        s, r = slam.store, src.store
+        loaded_equal = (s.n_points == r.n_points and s.n_keyframes == r.n_keyframes
+                        and np.array_equal(s.kf_R, r.kf_R) and np.array_equal(s.point_pos, r.point_pos))
+        slam.save_map(again)
+        a, b = _npz_arrays(path), _npz_arrays(again)
+        roundtrip_equal = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        n_kf = s.n_keyframes
+        kfdb_size = int(slam.kfdb.present.sum()) if slam.kfdb is not None else 0
+        probe = Probe(system_targets(slam), keep=1)
+        sync_ms, call_ms, poses = [], [], {}
+        hamming_cuda.reset_launch_counts()
+        with probe:
+            for i in MAP_IO_SYNC:
+                t0 = time.perf_counter()
+                poses[i] = slam.track_stereo(imgs[i][0], imgs[i][1], i / 20.0)
+                torch.cuda.synchronize()
+                sync_ms.append((time.perf_counter() - t0) * 1e3)
+            first = MAP_IO_SYNC[0]  # the fresh System counts its frames from 0
+            for i in MAP_IO_PIPELINED:
+                t0 = time.perf_counter()
+                done = slam.track_stereo_pipelined(imgs[i][0], imgs[i][1], i / 20.0)
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                poses.update({first + fid: T for fid, T in done})
+            poses.update({first + fid: T for fid, T in slam.flush_pipeline()})
+        launches = dict(hamming_cuda.launch_counts)
+        mirror = slam.store.mirror
+        stale, n_valid = _mirror_stale_rows(slam.store) if mirror is not None else (None, 0)
+        slam.shutdown()
+    stats = slam.tracker.stats
+    replayed = list(MAP_IO_SYNC) + list(MAP_IO_PIPELINED)
+    states = {MAP_IO_SYNC[0] + st.frame_id: st.state for st in stats}
+    ok = [i for i in replayed if states.get(i) == "OK"]
+    # the main path's alignment of its estimate onto the ground truth
+    sc, Ra, ta = umeyama_align(main["est"], gt)
+    err = {}
+    for i in ok:
+        T = poses[i]
+        c = sc * Ra @ (-T[:3, :3].T @ T[:3, 3]) + ta
+        err[i] = float(np.linalg.norm(c - gt[i]))
+    attempts = slam.tracker.reloc_stats
+    rec = {
+        "phase": "map_io", "map_keyframes": n_kf, "map_points": int(r.n_points),
+        "save_ms": save_ms, "load_ms": load_ms, "kfdb_after_load": kfdb_size,
+        "loaded_equal": bool(loaded_equal), "save_load_save_equal": bool(roundtrip_equal),
+        "replayed": [replayed[0], replayed[-1]], "states_ok": len(ok),
+        "first_ok": ok[0] if ok else None,
+        "centre_error_m": spread(list(err.values())), "centre_bound_m": MAP_IO_CENTRE_M,
+        "keyframes_after": int(slam.store.n_keyframes), "mapper_events": len(slam.mapper.stats),
+        "streamed_frames": sum(st.path == "stream" for st in stats),
+        "stream_fallbacks": slam.n_stream_fallbacks,
+        "mirror_stale_rows": stale, "mirror_valid_rows": n_valid,
+        "reloc_attempts": [dataclasses.asdict(x) for x in attempts],
+        "reloc_host_ms": [x.ms for x in attempts],
+        "reloc_launches": probe.launches["reloc"],
+        "frame_ms_median_sync": statistics.median(sync_ms),
+        "call_ms_median_pipelined": statistics.median(call_ms),
+        "launches_run": launches, "launches_by_caller": probe.launches,
+    }
+    emit(rec)
+    if not loaded_equal:
+        fail("the loaded store differs from the saved one (counts, kf_R or points)")
+    if not roundtrip_equal:
+        fail("save -> load -> save changed the map file's arrays")
+    if not ok or ok[0] >= replayed[0] + MAP_IO_FIRST_OK:
+        fail(f"not OK within {MAP_IO_FIRST_OK} frames of the first: "
+             f"{[states.get(i) for i in replayed[:MAP_IO_FIRST_OK]]}")
+    if len(ok) < MAP_IO_OK_SHARE * len(replayed):
+        fail(f"{len(ok)} of {len(replayed)} replayed frames OK (< {MAP_IO_OK_SHARE:.0%})")
+    if max(err.values()) >= MAP_IO_CENTRE_M:
+        fail(f"camera-centre error up to {max(err.values())} m on an OK frame")
+    if slam.store.n_keyframes != n_kf or slam.mapper.stats:
+        fail("localization mode added a keyframe or mapped one")
+    if stale != 0:
+        fail(f"device map mirror: {stale} of {n_valid} valid rows differ from the store")
+    if probe.launches["reloc"][MATRIX] < 1:
+        fail(f"relocalization against the loaded map launched {MATRIX} no time")
+    return rec
+
+
+def phase_hybrid(imgs, gt, main_rec):
+    """The headline room tour with the 13-state (hybrid) good-feature
+    selection and planner odometry: each frame's ground-truth pose is
+    buffered before the frame (`buffer_odometry`), through `track_stereo`
+    with synchronous mapping. Every frame OK; every frame that predicts a
+    search window (all but the initial one and the next, which matches
+    against the reference KF without a velocity) predicts it from the
+    buffer; ATE < 0.10 m."""
+    poses = trajectory_tour(TOUR_FRAMES)[:N_FRAMES]
+    base = headline_config()
+    cfg = base.replace(good_feature=dataclasses.replace(base.good_feature, info_mat_size=13))
+    slam = System(cfg, device=DEVICE)
+    probe = Probe(system_targets(slam), keep=1)
+    est, frame_ms = [], []
+    hamming_cuda.reset_launch_counts()
+    with probe, KeepLast(good_feature, "lazier_greedy_select") as sel:
+        for i, (left, right) in enumerate(imgs):
+            R_cw, t_cw = poses[i]
+            slam.buffer_odometry(i / 20.0, R_cw, t_cw)
+            t0 = time.perf_counter()
+            T = slam.track_stereo(left, right, i / 20.0)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            est.append(-T[:3, :3].T @ T[:3, 3])
+        slam.shutdown()
+    launches = dict(hamming_cuda.launch_counts)
+    stats = slam.tracker.stats
+    est = np.stack(est)
+    ate = ate_rmse(est, gt)
+    predicting = sum(st.path in ("fused", "motion") for st in stats)
+    steady = sorted(frame_ms[5:])
+    rec = {
+        "phase": "hybrid", "frames": N_FRAMES, "info_mat_size": 13,
+        "states_ok": sum(st.state == "OK" for st in stats),
+        "fused_frames": sum(st.path == "fused" for st in stats),
+        "predicting_frames": predicting, "odometry_predictions": slam.tracker.n_odom_predictions,
+        "keyframe_events": sum(bool(st.created_kf) for st in stats),
+        "mapper_events": len(slam.mapper.stats),
+        "ate_rmse_m": ate, "ate_bound_m": HYBRID_ATE_BOUND_M,
+        "ate_main_path_m": main_rec["ate_rmse_m"],
+        "frame_ms_median": statistics.median(steady),
+        "frame_ms_p90": steady[int(0.9 * (len(steady) - 1))],
+        "frame_ms_median_main_path": main_rec["frame_ms_median"],
+        "selection_last_frame": selection_cost(sel) if sel.args else None,
+        "selection_last_frame_main_path": main_rec["selection_last_frame"],
+        "launches_run": launches, "launches_by_caller": probe.launches,
+    }
+    emit(rec)
+    if any(st.state != "OK" for st in stats):
+        fail(f"hybrid tracking left OK: {[(st.frame_id, st.state) for st in stats if st.state != 'OK'][:10]}")
+    if predicting < N_FRAMES - 2 or slam.tracker.n_odom_predictions != predicting:
+        fail(f"{slam.tracker.n_odom_predictions} buffer predictions for {predicting} predicting "
+             f"frames of {N_FRAMES}")
+    if not (np.isfinite(est).all() and ate < HYBRID_ATE_BOUND_M):
+        fail(f"hybrid ATE {ate} m >= {HYBRID_ATE_BOUND_M} m")
+    if sel.args is None or sel.args[0][0].shape[-1] != 13:
+        fail("the 13-state selection did not run")
+    if probe.launches["tracking"][BEST2] < 1:
+        fail(f"hybrid tracking launched {BEST2} no time")
+    return rec
+
+
 def phase_reloc_matrix(captured):
     """The matrix kernel checked (tolerance 0) and timed on the inputs of the
     accepted relocalization's `match_all`, beside its plain version."""
@@ -1562,7 +1898,7 @@ def main():
     t0 = time.perf_counter()
     imgs, gt = render_tour()
     render_s = time.perf_counter() - t0
-    run, captured, ba_problem = phase_main_path(imgs, gt, render_s)
+    run, captured, ba_problem, main = phase_main_path(imgs, gt, render_s)
     pipelined = phase_pipelined(imgs, gt, run["ate_rmse_m"])
     t0 = time.perf_counter()
     circuit = render_loop()
@@ -1571,7 +1907,11 @@ def main():
     reloc, reloc_matrix = phase_reloc(circuit)
     mono, mono_calls = phase_mono(circuit)
     rgbd, rgbd_calls = phase_rgbd(imgs, gt, run["ate_rmse_m"])
-    path_calls = phase_path_masks(captured + loop_calls + mono_calls + rgbd_calls)
+    hashing, hashing_calls = phase_hashing(circuit, loop["ate_loop_off_m"])
+    map_io = phase_map_io(imgs, gt, main)
+    del main
+    hybrid = phase_hybrid(imgs, gt, run)
+    path_calls = phase_path_masks(captured + loop_calls + mono_calls + rgbd_calls + hashing_calls)
     matrix_calls = phase_reloc_matrix(reloc_matrix)
     phase_local_ba(ba_problem)
     phase_loop_solvers(pose_graph, gba_window, sim3)
@@ -1596,7 +1936,11 @@ def main():
                            launches_mono_path=mono["launches_run"][name],
                            launches_mono_by_caller={c: n[name] for c, n in
                                                     mono["launches_by_caller"].items()},
-                           launches_rgbd_path=rgbd["launches_run"][name])
+                           launches_rgbd_path=rgbd["launches_run"][name],
+                           launches_hashing_path=hashing["launches_run"][name],
+                           launches_map_io_path={c: n[name] for c, n in
+                                                 map_io["launches_by_caller"].items()},
+                           launches_hybrid_path=hybrid["launches_run"][name])
                       for name, rec in kernels.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

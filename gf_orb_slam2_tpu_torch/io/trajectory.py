@@ -40,7 +40,8 @@ def recompose_trajectory(relative_poses, store):
     return out
 
 
-def _tum_line(ts, T_cw) -> str:
+def tum_line(ts, T_cw) -> str:
+    """One TUM trajectory line: timestamp, camera centre, quaternion x y z w."""
     Rwc, twc = _pose_to_twc(T_cw)
     q = _quat_wxyz(Rwc)  # [w,x,y,z]
     return (f"{ts:.6f} {twc[0]:.7f} {twc[1]:.7f} {twc[2]:.7f} "
@@ -50,7 +51,7 @@ def _tum_line(ts, T_cw) -> str:
 def save_trajectory_tum(path, relative_poses, store):
     with open(path, "w") as f:
         for ts, T_cw in recompose_trajectory(relative_poses, store):
-            f.write(_tum_line(ts, T_cw))
+            f.write(tum_line(ts, T_cw))
 
 
 def save_keyframe_trajectory_tum(path, store):
@@ -59,7 +60,7 @@ def save_keyframe_trajectory_tum(path, store):
             T = np.eye(4, dtype=np.float32)
             T[:3, :3] = store.kf_R[k]
             T[:3, 3] = store.kf_t[k]
-            f.write(_tum_line(store.kf_timestamp[k], T))
+            f.write(tum_line(store.kf_timestamp[k], T))
 
 
 def save_trajectory_kitti(path, relative_poses, store):

@@ -190,10 +190,12 @@ class LocalMapper:
         self.stats: List[MappingStats] = []
         # host ms of each stage per event: refresh, triangulate_fuse and
         # local_ba (host gathering + upload + device + download), writeback
-        # (both stages' store updates), cull
+        # (both stages' store updates), cull, hash (the MIH insert and table
+        # selection; ~0 with hashing off)
         self.event_ms: List[dict] = []
         self._writeback_ms = {"triangulate_fuse": 0.0, "local_ba": 0.0}
         self.velocity_provider = None  # () -> 4x4 velocity or None (anticipation)
+        self.mih = None  # the multi-index hash, set by System when hashing is on
 
     # ------------------------------------------------------------- pipeline
     def process_keyframe(self, kf: int, skip_ba: bool = False) -> MappingStats:
@@ -216,13 +218,16 @@ class LocalMapper:
         t3 = time.perf_counter()
         st.n_culled_kfs = self.cull_keyframes(kf)
         t4 = time.perf_counter()
+        self.update_hash_tables(kf)
+        t5 = time.perf_counter()
         wb = self._writeback_ms
         self.event_ms.append({
             "refresh": (t1 - t0) * 1e3,
             "triangulate_fuse": (t2 - t1) * 1e3 - wb["triangulate_fuse"],
             "local_ba": (t3 - t2) * 1e3 - wb["local_ba"],
             "writeback": wb["triangulate_fuse"] + wb["local_ba"],
-            "cull": (t4 - t3) * 1e3})
+            "cull": (t4 - t3) * 1e3,
+            "hash": (t5 - t4) * 1e3})
         self.stats.append(st)
         return st
 
@@ -541,3 +546,21 @@ class LocalMapper:
             for k in victims:
                 s.erase_keyframe(k)
         return len(victims)
+
+    def update_hash_tables(self, kf: int):
+        """Insert this KF's (possibly new/updated) points into the MIH tables,
+        then re-select the active tables (reference: UpdateHashTables
+        LocalMapping.cc:948). Runs with store.lock held: tracking queries the
+        same tables."""
+        mih = self.mih
+        if mih is None:
+            return
+        s = self.store
+        with s.lock:
+            pts = s.kf_point[kf]
+            pts = np.unique(pts[pts >= 0])
+            pts = pts[s.point_valid[pts]]
+            if pts.size:
+                mih.insert(s.point_desc[pts], pts.astype(np.int32))
+            if self.cfg.hashing.online_table_selection:
+                mih.update_table_selection()

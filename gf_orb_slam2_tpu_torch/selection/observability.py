@@ -12,13 +12,16 @@ Jacobians and [P,7,7] information matrices.
 State convention (reference: 13-dim Xv = [p(3), q(4), v(3), ω(3)],
 Observability.h:266): p = camera position in world, q = Hamilton [w,x,y,z]
 camera→world rotation. The info-matrix block used for good-feature selection
-is the pose part [p, q] → 7x7 (reference: Tracking.cc:271-274 size choice).
+is the pose part [p, q] → 7x7 (reference: Tracking.cc:271-274 size choice);
+the hybrid mode (`good_feature.info_mat_size=13`) uses the full 13x13 state
+with a kinematic prior on the velocity block.
 """
 from __future__ import annotations
 
 import torch
 
 from gf_orb_slam2_tpu_torch.geometry import lie
+from gf_orb_slam2_tpu_torch.tracking.kinematics import KineState, predict, process_jacobian
 
 
 def measurement_jacobians(q, p, pts, fx, fy, bf, stereo_mask):
@@ -92,6 +95,50 @@ def pose_info_from_frame(q, p, pts, fx, fy, bf, stereo_mask, inv_sigma2, valid):
     (reference: the running curMat in runActiveMapMatching)."""
     M = info_matrices(q, p, pts, fx, fy, bf, stereo_mask, inv_sigma2, valid)
     return M.sum(0)
+
+
+def measurement_jacobians_13(q, p, pts, fx, fy, bf, stereo_mask):
+    """Hybrid full-state Jacobian H [P,3,13] over Xv = [p,q,v,ω]
+    (reference: USE_HYBRID_INFO_MATRIX, Tracking.cc:271-274 size 13).
+    Velocity/rate columns are zero at the measurement instant — they gain
+    rank through the kinematic transition (see `som_matrices`) or the
+    kinematic prior in `info_matrices_13`."""
+    H7, pc = measurement_jacobians(q, p, pts, fx, fy, bf, stereo_mask)
+    z6 = torch.zeros(H7.shape[:-1] + (6,), dtype=H7.dtype, device=H7.device)
+    return torch.cat([H7, z6], -1), pc
+
+
+def info_matrices_13(q, p, pts, fx, fy, bf, stereo_mask, inv_sigma2, valid,
+                     kine_prior: float = 1e2):
+    """Per-landmark 13x13 hybrid information matrices: measurement info on
+    the pose block + a kinematic prior on the velocity/rate block (the
+    reference's hybrid mode folds the propagated kinematic covariance in;
+    a diagonal prior keeps the matrix full-rank with the same selection
+    ordering on the pose block)."""
+    H, pc = measurement_jacobians_13(q, p, pts, fx, fy, bf, stereo_mask)
+    w = (valid & (pc[..., 2] > 1e-3)).to(H.dtype) * inv_sigma2
+    M = (H * w[:, None, None]).transpose(1, 2) @ H
+    prior = torch.cat([torch.zeros(7, dtype=M.dtype, device=M.device),
+                       torch.full((6,), kine_prior, dtype=M.dtype, device=M.device)])
+    return M + torch.diag(prior)[None]
+
+
+def som_matrices(q, p, v, w_rate, dts, pts, fx, fy, bf, stereo_mask):
+    """Stripe observability matrix over a PWLS segment chain
+    (reference: Observability::compute_SOM_In_Segment Observability.cc:34):
+    SOM = [H(x₀); H(x₁)F₁; H(x₂)F₂F₁; ...] with the 13-state constant-
+    velocity transition. Returns [P, 3·n, 13] for n = len(dts) segments.
+    """
+    st = KineState(p=p, q=q, v=v, w=w_rate)
+    Phi = torch.eye(13, dtype=pts.dtype, device=pts.device)
+    stripes = []
+    for dt in dts:
+        H, _ = measurement_jacobians_13(st.q, st.p, pts, fx, fy, bf, stereo_mask)
+        stripes.append(H @ Phi)
+        F = process_jacobian(st, dt)
+        Phi = F @ Phi
+        st = predict(st, dt)
+    return torch.cat(stripes, 1)
 
 
 def _chol_logdet_unrolled(M, eps=1e-6):

@@ -33,11 +33,22 @@ stereo frame does; a monocular tracker bootstraps from two views
 (tracking/initializer.py) and closes loops with a free scale. A LOST
 tracker relocalizes against the keyframe database's candidates.
 
-MIH hashing is not part of this package yet; the option that would ask for
-it raises instead of being ignored.
+With `hashing.enabled` one multi-index hash (hashing/mih.py, host C++) is
+shared by the tracker, which assembles its local map from it past
+`hashing.map_size_trigger` points, and the local mapper, which inserts every
+mapped keyframe's points; each call holds the store's lock.
+
+The rest of the reference's facade: map save/load (io/map_io.py, the JAX
+package's .npz layout) with localization-only mode, planner odometry
+(`buffer_odometry`), the ChArUco world anchor at stereo initialization, the
+per-frame TUM stream (`set_realtime_stream`), the tracking, mapping, loop and
+landmark logs, and the runtime budgets (`set_constr_per_frame`,
+`set_budget_per_frame`), each taking effect at the next dispatch.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import queue
 import threading
@@ -50,12 +61,14 @@ import torch
 from gf_orb_slam2_tpu_torch.config import Sensor, SystemConfig
 from gf_orb_slam2_tpu_torch.features.extractor import ORBExtractor
 from gf_orb_slam2_tpu_torch.geometry import camera as cam_mod
-from gf_orb_slam2_tpu_torch.io import trajectory as traj_io
+from gf_orb_slam2_tpu_torch.hashing.mih import MultiIndexHashing
+from gf_orb_slam2_tpu_torch.io import map_io, trajectory as traj_io
 from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import LoopCloser
 from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper
 from gf_orb_slam2_tpu_torch.matching import stereo as stereo_mod
 from gf_orb_slam2_tpu_torch.place.keyframe_db import KeyFrameDatabase
 from gf_orb_slam2_tpu_torch.place.vocabulary import Vocabulary
+from gf_orb_slam2_tpu_torch.selection.good_graph import estimate_kf_budget
 from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
@@ -69,6 +82,19 @@ LOOP_THREAD = "loop"        # name of the loop worker's thread
 VOCAB_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "gf_orb_slam2_tpu", "assets")
 VOCAB_FILES = ("vocab100k.npz", "vocab10k.npz")
+# fields of the port's stats records that the JAX package's records lack:
+# the log savers leave them out, so both packages write the same keys
+_PORT_ONLY_LOG_FIELDS = frozenset({"path", "ba_discarded"})
+
+
+def _save_stats_log(path, stats):
+    """One JSON object per stats record (dataclass), plain Python values."""
+    with open(path, "w") as f:
+        for st in stats:
+            row = {k: (v.item() if hasattr(v, "item") else v)
+                   for k, v in dataclasses.asdict(st).items()
+                   if k not in _PORT_ONLY_LOG_FIELDS}
+            f.write(json.dumps(row) + "\n")
 
 
 def _to_u8(im) -> np.ndarray:
@@ -246,7 +272,13 @@ class System:
         self.mapper = LocalMapper(cfg, self.store, n_kp, scales, self.device)
         # anticipation budgeting reads the tracker's motion model
         self.mapper.velocity_provider = lambda: self.tracker.velocity
+        if cfg.hashing.enabled:
+            # one set of tables: the mapper inserts, the tracker queries
+            mih = MultiIndexHashing(cfg.hashing, cfg.capacity.max_map_points)
+            self.tracker.mih = mih
+            self.mapper.mih = mih
         self.frame_id = 0
+        self._rt_stream = None  # the per-frame TUM pose stream, when set
         # pipelined driver: (frame, pool ids, pending download) per frame in
         # flight, oldest first
         self._inflight = deque()
@@ -371,6 +403,7 @@ class System:
     def _complete_one(self):
         frame, pool_ids, pending = self._inflight.popleft()
         st = self.tracker.stream_complete(frame, pending.wait(), pool_ids)
+        self._stream_pose(frame)
         if st.created_kf and not self.cfg.localization_only:
             self._keyframe_event(self.tracker.ref_kf)
         return frame.frame_id, frame.pose_matrix()
@@ -427,10 +460,17 @@ class System:
                 self.reset()
             elif self.tracker.n_lost > self.cfg.tracking.max_lost_frames:
                 self.reset()
+        self._stream_pose(frame)
         if st.created_kf and not self.cfg.localization_only:
             self._keyframe_event(self.tracker.ref_kf)
         self.frame_id += 1
         return frame.pose_matrix()
+
+    def _stream_pose(self, frame: Frame):
+        """Append the frame's pose to the realtime stream, if one is set."""
+        if self._rt_stream is not None and frame.R is not None:
+            self._rt_stream.write(traj_io.tum_line(frame.timestamp, frame.pose_matrix()))
+            self._rt_stream.flush()
 
     def _on_keyframe(self, kf: int, skip_ba: bool = False):
         """KF post-processing: the local mapping stages (reference:
@@ -593,12 +633,62 @@ class System:
         # the tracking results: one blocking sync per frame.
         imgs = torch.from_numpy(np.stack([_to_u8(im_left), _to_u8(im_right)]))
         out = self._frontend_stereo_impl(imgs.to(self.device))
-        return Frame.deferred(self.frame_id, ts, out)
+        frame = Frame.deferred(self.frame_id, ts, out)
+        if self.cfg.charuco.enabled and self.state in (TrackState.NO_IMAGES_YET,
+                                                       TrackState.NOT_INITIALIZED):
+            # the ChArUco anchor's input (host only, until initialization)
+            frame._raw_img = np.asarray(im_left)
+        return frame
 
     # ------------------------------------------------------------ lifecycle
     @property
     def state(self) -> TrackState:
         return self.tracker.state
+
+    def set_realtime_stream(self, path):
+        """Per-frame TUM-format pose stream appended as tracking runs
+        (reference: System::SetRealTimeFileStream System.cc:415); closed by
+        `shutdown` or by setting another."""
+        if self._rt_stream is not None:
+            self._rt_stream.close()
+        self._rt_stream = open(path, "w")
+
+    def buffer_odometry(self, timestamp: float, R, t):
+        """Push a planner-predicted world→cam pose for `timestamp`
+        (reference: System/Tracking BufferingOdom Tracking.cc:503, fed from
+        the /desired_path topic in ros_stereo.cc:171). When the buffer covers
+        the tracked timestamps, the motion-model prediction uses it instead
+        of constant velocity (PredictRelMotionFromBuffer Tracking.cc:1448)."""
+        self.tracker.odom.push(timestamp, np.asarray(R, np.float32),
+                               np.asarray(t, np.float32))
+
+    def set_constr_per_frame(self, n: int):
+        """Good-feature budget: number of actively matched constraints/frame
+        (reference: System::SetConstrPerFrame System.cc:444). Every tracking
+        step reads the budget from the tracker's configuration: the next
+        dispatch, synchronous or streamed, uses it."""
+        gf = dataclasses.replace(self.cfg.good_feature, constr_per_frame=int(n))
+        self.cfg = self.cfg.replace(good_feature=gf)
+        self.tracker.cfg = self.cfg
+
+    def set_budget_per_frame(self, budget_ms: float):
+        """Map good-graph time budget → subgraph size via the cubic model
+        (reference: System::SetBudgetPerFrame System.cc:433 +
+        estimateKFNum Optimizer.cc:566); the next keyframe event uses it."""
+        gg = dataclasses.replace(self.cfg.good_graph,
+                                 subgraph_size=estimate_kf_budget(budget_ms))
+        self.cfg = self.cfg.replace(good_graph=gg)
+        self.mapper.cfg = self.cfg
+
+    def activate_localization_mode(self):
+        """Reference: System::ActivateLocalizationMode (System.cc:~340): no
+        keyframe is created and none is mapped."""
+        self.cfg = self.cfg.replace(localization_only=True)
+        self.tracker.cfg = self.cfg
+
+    def deactivate_localization_mode(self):
+        self.cfg = self.cfg.replace(localization_only=False)
+        self.tracker.cfg = self.cfg
 
     def force_reloc(self):
         """Reference: System::ForceRelocTracker (System.cc:798): the next
@@ -652,8 +742,43 @@ class System:
                 self._loop_worker = None
             if self.loop_closer is not None:
                 self.loop_closer.abort_gba()
+            if self._rt_stream is not None:
+                self._rt_stream.close()
+                self._rt_stream = None
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+
+    # ----------------------------------------------------------- map io
+    def save_map(self, path):
+        """Reference: System::SaveMap (System.cc:1315): the store as one .npz
+        (io/map_io.py) and the vocabulary beside it as `<path>.voc.npz`. The
+        shipped vocabulary is read for the sidecar when loop closing is off
+        (the JAX package loads it at construction either way)."""
+        map_io.save_map(path, self.store)
+        if self.voc is None:
+            self._load_vocabulary()
+        if self.voc is not None:
+            self.voc.save(str(path) + ".voc.npz")
+
+    def load_map(self, path):
+        """Reference: System::LoadMap (System.cc:907), typically followed by
+        `activate_localization_mode()`. The frames in flight and the workers'
+        events complete first; the store is overwritten in place (detaching
+        the device map mirror) and tracking restarts LOST, so the next frame
+        relocalizes against the loaded map. As in the JAX package, a sidecar
+        vocabulary sets up the KF database only if none exists yet (loop
+        closing off): with loop closing on, the database built at
+        construction stays empty and relocalization tries the newest KFs.
+        The hash tables are not rebuilt from the loaded points."""
+        self.flush_pipeline()
+        map_io.load_map(path, self.store)
+        voc_path = str(path) + ".voc.npz"
+        if os.path.exists(voc_path):
+            self.voc = Vocabulary.load(voc_path)
+            self._ensure_place_recognition()
+        self.tracker.state = TrackState.LOST
+        if self.store.n_keyframes:
+            self.tracker.ref_kf = int(self.store.valid_kf_ids()[-1])
 
     # ----------------------------------------------------------- trajectory
     def save_trajectory_tum(self, path):
@@ -664,3 +789,33 @@ class System:
 
     def save_trajectory_kitti(self, path):
         traj_io.save_trajectory_kitti(path, self.tracker.relative_poses, self.store)
+
+    # ----------------------------------------------------------------- logs
+    def save_tracking_log(self, path):
+        """Reference: System::SaveTrackingLog (System.cc:501): one JSON line
+        per frame."""
+        _save_stats_log(path, self.tracker.stats)
+
+    def save_loop_log(self, path):
+        """Per-KF loop-closing log (detection/sim3/correction stats)."""
+        _save_stats_log(path, self.loop_closer.stats if self.loop_closer is not None else [])
+
+    def save_mapping_log(self, path):
+        """Reference: System::SaveMappingLog (System.cc:542) — per-KF BA
+        stage log (MappingLog Util.hpp:282)."""
+        _save_stats_log(path, self.mapper.stats)
+
+    def save_lmk_log(self, path):
+        """Landmark-lifetime log (reference: System::SaveLmkLog System.cc:479,
+        LmkLog Util.hpp:384): per-landmark visible/found counters, observation
+        count, and first keyframe."""
+        s = self.store
+        with open(path, "w") as f:
+            for p in s.valid_point_ids():
+                f.write(json.dumps({
+                    "id": int(p),
+                    "first_kf": int(s.point_first_kf[p]),
+                    "n_obs": int(s.point_nobs[p]),
+                    "visible": int(s.point_visible[p]),
+                    "found": int(s.point_found[p]),
+                }) + "\n")

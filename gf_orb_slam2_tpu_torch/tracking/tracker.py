@@ -29,10 +29,14 @@ Stage → reference mapping:
 - Mono bootstrap   ← MonocularInitialization + CreateInitialMapMonocular
   (Tracking.cc:1141/1206): window matching, the batched H/F RANSAC of
   tracking/initializer.py, the two-KF map at unit median depth.
-- Velocity model   ← mVelocity update (Tracking.cc:796).
-
-Not part of this package yet: the ChArUco anchor, hashed local maps and
-planner odometry.
+- Velocity model   ← mVelocity update (Tracking.cc:796); planner odometry
+  (`odom`, reference PredictRelMotionFromBuffer Tracking.cc:1448) replaces it
+  for the search-window prediction where it covers both timestamps.
+- Local map        ← UpdateLocalKeyFrames/UpdateLocalPoints, or the hashed
+  assembly past MAP_SIZE_TRIGGER_HASHING (UpdateLocalPointsByHashing
+  Tracking.cc:2895) through the host multi-index hash (hashing/mih.py).
+- World anchor     ← INIT_WITH_ARUCHO: a ChArUco board in the first stereo
+  frame gives its pose (io/charuco.py, host OpenCV).
 """
 from __future__ import annotations
 
@@ -40,18 +44,21 @@ import dataclasses
 import enum
 import math
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from gf_orb_slam2_tpu_torch.config import GFMatchingMode, Sensor, SystemConfig
+from gf_orb_slam2_tpu_torch.config import GFMatchingMode, LocalMapMode, Sensor, SystemConfig
 from gf_orb_slam2_tpu_torch.geometry import lie
+from gf_orb_slam2_tpu_torch.io import charuco
 from gf_orb_slam2_tpu_torch.matching import matcher
 from gf_orb_slam2_tpu_torch.optim import pose_opt
 from gf_orb_slam2_tpu_torch.selection import good_feature, observability
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking import initializer, pnp, projection
+from gf_orb_slam2_tpu_torch.tracking.kinematics import OdometryBuffer
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
 from gf_orb_slam2_tpu_torch.utils.transfer import desc_to_torch, to_device, to_host
 
@@ -201,10 +208,6 @@ def local_step(
             # GOOD FEATURE branch (reference: Tracking.cc:2348-2377 →
             # Observability::runActiveMapMatching): restrict the search
             # to the Max-logDet subset when the pool is large.
-            if gf_cfg.info_mat_size != 7:
-                raise NotImplementedError(
-                    "info_mat_size=13 (hybrid kinematic state) is not part of "
-                    "this package yet")
             R_wc = R0.T
             q_wc = lie.rot_to_quat(R_wc)
             center = -(R_wc @ t0)
@@ -212,13 +215,22 @@ def local_step(
             is_stereo_sensor = cfg.sensor != Sensor.MONOCULAR
             dev = loc_pos.device
             stereo_mask = torch.full((loc_pos.shape[0],), is_stereo_sensor, device=dev)
-            obs_mats = observability.info_matrices(
-                q_wc, center, loc_pos, fx, fy, bf, stereo_mask, inv2_pt, pool)
             n = kp_mp_pos.shape[0]
-            base = observability.pose_info_from_frame(
-                q_wc, center, kp_mp_pos, fx, fy, bf,
-                torch.full((n,), is_stereo_sensor, device=dev),
-                torch.ones(n, dtype=obs_mats.dtype, device=dev), kp_mp_valid)
+            kp_stereo = torch.full((n,), is_stereo_sensor, device=dev)
+            ones = torch.ones(n, dtype=loc_pos.dtype, device=dev)
+            if gf_cfg.info_mat_size == 13:
+                # hybrid full-state mode (reference: Tracking.cc:271-274
+                # USE_HYBRID_INFO_MATRIX → 13x13 over [p,q,v,ω])
+                obs_mats = observability.info_matrices_13(
+                    q_wc, center, loc_pos, fx, fy, bf, stereo_mask, inv2_pt, pool)
+                base = observability.info_matrices_13(
+                    q_wc, center, kp_mp_pos, fx, fy, bf, kp_stereo, ones,
+                    kp_mp_valid, kine_prior=0.0).sum(0)
+            else:
+                obs_mats = observability.info_matrices(
+                    q_wc, center, loc_pos, fx, fy, bf, stereo_mask, inv2_pt, pool)
+                base = observability.pose_info_from_frame(
+                    q_wc, center, kp_mp_pos, fx, fy, bf, kp_stereo, ones, kp_mp_valid)
             sel, _ = good_feature.lazier_greedy_select(
                 obs_mats, pool, gf_cfg.constr_per_frame, generator,
                 lazier_factor=gf_cfg.lazier_factor, base_mat=base)
@@ -456,9 +468,6 @@ def stream_step(cfg: SystemConfig, scales, upload, frontend_out, chain, mirror,
 class Tracker:
     def __init__(self, cfg: SystemConfig, store: MapStore, n_kp: int,
                  level_scales, device="cuda"):
-        if cfg.hashing.enabled:
-            raise NotImplementedError(
-                "hashed local maps (MIH) are not part of this package yet")
         self.cfg = cfg
         self.store = store
         self.n_kp = n_kp
@@ -486,6 +495,9 @@ class Tracker:
         self._mono_init_frame: Optional[Frame] = None  # held reference view
         self.init_stats: list = []  # per two-view attempt: frame, matches, ok, H?, ms
         self._draw_gen = torch.Generator(device=self.device)
+        self.mih = None  # the multi-index hash, set by System when hashing is on
+        self.odom = OdometryBuffer()  # planner-predicted motion (opt-in)
+        self.n_odom_predictions = 0  # search windows predicted from `odom`
 
     # ---------------------------------------------------------- transfers
     def _up(self, a):
@@ -655,6 +667,18 @@ class Tracker:
         self._finish_frame(frame, st)
         return st
 
+    def _feed_ots(self, frame: Frame):
+        """Per-table retrieval-utility update from this frame's matches
+        (reference OTS: Tracking::UpdateQueryNumByHashTable Tracking.cc:3111)."""
+        if self.mih is None:
+            return
+        has = frame.mp_ids >= 0
+        if not has.any():
+            return
+        with self.store.lock:
+            self.mih.update_query_scores(
+                frame.desc[has], self.store.point_desc[frame.mp_ids[has]])
+
     def _merge_additional_matches(self, frame: Frame):
         """Merge the leftover-candidate matches into the frame AFTER the KF
         policy ran (reference order: SearchAdditionalMatchesInFrame is called
@@ -674,9 +698,18 @@ class Tracker:
         frame._extra_assign = None
 
     # ---------------------------------------------------------- stages
-    def _predict_pose(self):
-        """Search-window prediction: constant velocity."""
-        T_pred = self.velocity @ self.last_frame.pose_matrix()
+    def _predict_pose(self, ts: Optional[float] = None):
+        """Search-window prediction: planner odometry when buffered for both
+        the last frame's timestamp and `ts` (reference:
+        ENABLE_PLANNER_PREDICTION README.md:87-101 + PredictRelMotionFromBuffer
+        Tracking.cc:1448), else constant velocity."""
+        T_last = self.last_frame.pose_matrix()
+        rel = None
+        if ts is not None and self.last_frame.timestamp is not None:
+            rel = self.odom.relative_motion(self.last_frame.timestamp, ts)
+        if rel is not None:
+            self.n_odom_predictions += 1
+        T_pred = (rel if rel is not None else self.velocity) @ T_last
         return T_pred[:3, :3].copy(), T_pred[:3, 3].copy()
 
     def _last_frame_points(self):
@@ -697,7 +730,7 @@ class Tracker:
     def _track_with_motion_model(self, frame: Frame, st: TrackStats) -> bool:
         lf = self.last_frame
         ids, rows, pt_pos, pt_desc, pt_oct = self._last_frame_points()
-        R0, t0 = self._predict_pose()
+        R0, t0 = self._predict_pose(frame.timestamp)
         kp = self._frame_dev(frame)
         res, kp_row, _ = motion_step(
             self.cfg, self._scales_dev,
@@ -792,7 +825,7 @@ class Tracker:
         lf = self.last_frame
         pool_ids, loc = self._cached_pool
         ids, rows, pt_pos, pt_desc, pt_oct = self._last_frame_points()
-        R0, t0 = self._predict_pose()
+        R0, t0 = self._predict_pose(frame.timestamp)
         kp = self._frame_dev(frame)
         loc = to_device(dict(enumerate(loc)), self.device).values()
         res_m, kp_row_m, res_l, kp_row_l, kp_row_add, _ = fused_track(
@@ -838,6 +871,7 @@ class Tracker:
         tracked = frame.mp_ids[frame.mp_ids >= 0]
         s.point_found[tracked] += 1
         s.point_visible[pool_ids] += 1
+        self._feed_ots(frame)
         return int(d["n_inliers"]) >= self._min_inliers(frame.frame_id)
 
     # ---------------------------------------------------- pipelined path
@@ -914,6 +948,7 @@ class Tracker:
         tracked = frame.mp_ids[frame.mp_ids >= 0]
         s.point_found[tracked] += 1
         s.point_visible[pool_ids] += 1
+        self._feed_ots(frame)
         if int(d["n_inliers"]) >= self._min_inliers(frame.frame_id):
             self.state = TrackState.OK
             self.n_lost = 0
@@ -960,7 +995,29 @@ class Tracker:
         kfs = kfs[s.kf_valid[kfs]]
         # reference keyframe := max-covis KF (Tracking.cc:2601)
         self.ref_kf = int(k1[np.argmax(counts[k1])])
-        pts = np.unique(s.kf_point[kfs])
+        # local-map assembly: covisibility traversal, hash retrieval, or both
+        # (reference: UpdateLocalPointsByHashing Tracking.cc:2895, modes
+        # CovisOnly/HashOnly/Combined Tracking.h:197-201, trigger
+        # MAP_SIZE_TRIGGER_HASHING Tracking.h:66)
+        mode = self.cfg.tracking.local_map_mode
+        use_hash = (
+            self.mih is not None
+            and s.n_points > self.cfg.hashing.map_size_trigger
+            and mode in (LocalMapMode.HASH_ONLY, LocalMapMode.COMBINED)
+        )
+        if use_hash:
+            with s.lock:  # the mapping worker inserts into the same tables
+                hpts = self.mih.query(frame.desc[frame.valid])
+                hpts = hpts[(hpts >= 0) & (hpts < s.point_valid.shape[0])]
+                hpts = hpts[s.point_valid[hpts]]
+                self.mih.update_dynamics(len(hpts))
+            if mode == LocalMapMode.HASH_ONLY:
+                pts = np.unique(hpts)
+            else:
+                cpts = np.unique(s.kf_point[kfs])
+                pts = np.unique(np.concatenate([cpts[cpts >= 0], hpts]))
+        else:
+            pts = np.unique(s.kf_point[kfs])
         pts = pts[pts >= 0]
         pts = pts[s.point_valid[pts]]
         L = self.cfg.capacity.max_local_points
@@ -1013,6 +1070,7 @@ class Tracker:
         tracked = frame.mp_ids[frame.mp_ids >= 0]
         s.point_found[tracked] += 1
         s.point_visible[pts] += 1
+        self._feed_ots(frame)
         return int(h["n_inl"]) >= self._min_inliers(frame.frame_id)
 
     def _relocalize(self, frame: Frame, st: TrackStats) -> bool:
@@ -1069,12 +1127,39 @@ class Tracker:
         return ok
 
     # ---------------------------------------------------------- lifecycle
+    def _charuco_anchor(self, frame: Frame):
+        """World-frame anchor from a ChArUco board in the first frame
+        (reference: INIT_WITH_ARUCHO — Tracking uses ChArUco::process to
+        set the initial pose instead of the identity, src/ChArUco.cc:92).
+        Reads the frame's raw left image (host numpy, `frame._raw_img`, kept
+        by System only until initialization). Returns (R_cw, t_cw) or None."""
+        if not self.cfg.charuco.enabled:
+            return None
+        raw = getattr(frame, "_raw_img", None)
+        if raw is None:
+            return None
+        cc = self.cfg.charuco
+        cam = self.cfg.camera
+        K = np.asarray([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]],
+                       np.float64)
+        board = charuco.CharucoBoard(cc.squares_x, cc.squares_y, cc.square_len,
+                                     cc.marker_len, cc.dictionary)
+        try:
+            return charuco.detect_board_pose(np.asarray(raw), board, K, np.zeros(5))
+        except Exception as e:  # no OpenCV, or it refused the image
+            warnings.warn(f"ChArUco detection failed ({e!r}): the first pose is the identity")
+            return None
+
     def _stereo_initialization(self, frame: Frame) -> bool:
         if frame.n_kp < 500:
             return False
         s = self.store
-        frame.R = np.eye(3, dtype=np.float32)
-        frame.t = np.zeros(3, np.float32)
+        anchor = self._charuco_anchor(frame)
+        if anchor is not None:
+            frame.R, frame.t = anchor
+        else:
+            frame.R = np.eye(3, dtype=np.float32)
+            frame.t = np.zeros(3, np.float32)
         k = s.add_keyframe(
             frame.R, frame.t, frame.uv, frame.octave, frame.angle, frame.desc,
             frame.u_right, frame.depth, frame.valid, frame.frame_id, frame.timestamp,
@@ -1088,7 +1173,7 @@ class Tracker:
             (frame.uv[idxs, 1] - cam.cy) * z / cam.fy,
             z,
         ], -1).astype(np.float32)
-        # camera → world through the first pose
+        # camera → world through the (possibly board-anchored) first pose
         pts = (pc - frame.t) @ frame.R
         ids = s.add_points_batch(pts, frame.desc[idxs], k, k, idxs)
         frame.mp_ids[idxs] = ids

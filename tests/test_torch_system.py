@@ -167,8 +167,9 @@ def test_default_device_raises_without_cuda():
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter, importing the port (the mapping and loop
-    closing slices' modules named one by one) adds no jax module and nothing of the JAX
+    """In a fresh interpreter, importing the port (the mapping, loop
+    closing, relocalization, hashing and host IO slices' modules named one by
+    one) adds no jax module and nothing of the JAX
     package to sys.modules (compared against what the interpreter's own
     start-up had already loaded); once torch is loaded, the port brings in
     nothing but its own modules and the standard library. It also pins
@@ -191,6 +192,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "gf_orb_slam2_tpu_torch.loopclosing.loop_closer, gf_orb_slam2_tpu_torch.optim.pose_graph, "
         "gf_orb_slam2_tpu_torch.optim.global_ba, gf_orb_slam2_tpu_torch.utils.autodiff\n"
         "import gf_orb_slam2_tpu_torch.tracking.pnp, gf_orb_slam2_tpu_torch.tracking.initializer\n"
+        "import gf_orb_slam2_tpu_torch.hashing.mih, gf_orb_slam2_tpu_torch.io.map_io, "
+        "gf_orb_slam2_tpu_torch.io.settings, gf_orb_slam2_tpu_torch.io.dataset, "
+        "gf_orb_slam2_tpu_torch.io.keypoints, gf_orb_slam2_tpu_torch.io.charuco, "
+        "gf_orb_slam2_tpu_torch.tracking.kinematics, gf_orb_slam2_tpu_torch.viz.visualizer\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'gf_orb_slam2_tpu')]\n"
         "assert not bad, bad\n"
@@ -217,12 +222,15 @@ def _repo_root():
 
 
 def test_unported_options_raise_instead_of_misbehaving():
-    """Options of parts not ported raise; asynchronous mapping and loop
-    closing are ported and construct (the loop closer at once, with the
-    shipped vocabulary; the workers with the first keyframe event)."""
+    """Every option of the JAX package's System is ported and constructs:
+    hashing (one multi-index hash shared by the tracker and the mapper),
+    asynchronous mapping and loop closing (the loop closer at once, with the
+    shipped vocabulary; the workers with the first keyframe event); a
+    tracking entry of another sensor still refuses."""
     cfg = _small_config()
-    with pytest.raises(NotImplementedError):
-        System(cfg.replace(hashing=tconfig.HashingConfig(enabled=True)), device="cpu")
+    slam = System(cfg.replace(hashing=tconfig.HashingConfig(enabled=True)), device="cpu")
+    assert slam.tracker.mih is not None and slam.tracker.mih is slam.mapper.mih
+    assert System(cfg, device="cpu").tracker.mih is None  # hashing off
     for tracking in (tconfig.TrackingConfig(async_mapping=False),
                      tconfig.TrackingConfig(async_mapping=True)):
         slam = System(cfg.replace(loop=tconfig.LoopClosingConfig(), tracking=tracking),
