@@ -63,6 +63,22 @@ the buffer, ATE < 0.10 m; the selection's ms and kernels beside the main
 path's). The `build` phase compiles the hash's host library (g++) beside
 the CUDA kernels.
 
+Phases `cli` and `dist_ba` drive the last two entry points. `cli` writes
+tests/test_examples_cli.py's rendered 36-frame arc in EuRoC layout, runs
+`examples/run_stereo_torch.py` on it as a subprocess with the default
+device and `examples/eval_ate_torch.py` on its trajectory (36 frames, a
+keyframe, the files, ATE < 0.25 m: that test's gates), then
+`batch_sweep_torch.run_one` in this process at budgets 80 and 160, whose
+kernel launches join the `kernels` line. `dist_ba` solves the JAX dry run's
+problem (__graft_entry__.py: K = 32, P = 32768, 8 LM iterations) through
+`parallel.dist_ba.distributed_ba` in both layouts on an NCCL world of one
+rank (this process): a 4x pose-error reduction, the same result as a
+4-rank gloo world on the CPU started by `parallel/launch.py`, and the
+collectives per LM iteration equal to the formula
+(tools/collective_audit_torch.py); it records ms, kernel launches and
+device-busy share per LM iteration and the ablated step. The card holds one
+GPU, so no multi-GPU scaling is measured here.
+
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code. The last line is {"ok": true, "device": {...}} and is
 printed only if every phase passed.
@@ -70,6 +86,7 @@ printed only if every phase passed.
 Needs a CUDA device, `nvcc` and `g++`; imports torch and numpy (and OpenCV
 through the renderer), never JAX.
 """
+import argparse
 import collections
 import concurrent.futures
 import dataclasses
@@ -114,17 +131,18 @@ from gf_orb_slam2_tpu_torch.tracking import pnp, tracker as tracker_mod  # noqa:
 from gf_orb_slam2_tpu_torch.utils.transfer import to_device  # noqa: E402
 
 
-def _load_renderer():
-    """tests/rendered_world.py (numpy + OpenCV ray-cast room), loaded by path:
-    `tests` is not a package and the name may be taken on the import path."""
-    path = os.path.join(ROOT, "tests", "rendered_world.py")
-    spec = importlib.util.spec_from_file_location("rendered_world", path)
+def _load_by_path(name, rel):
+    """A file of the repo loaded as module `name` by its path: `tests`,
+    `tools` and `examples` are not packages, and their names may be taken on
+    the import path."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-_renderer = _load_renderer()
+# numpy + OpenCV ray-cast room
+_renderer = _load_by_path("rendered_world", "tests/rendered_world.py")
 RoomWorld, trajectory_tour = _renderer.RoomWorld, _renderer.trajectory_tour
 trajectory_loop = _renderer.trajectory_loop
 
@@ -1891,6 +1909,244 @@ def phase_local_ba(assembled):
     return rec
 
 
+# ------------------------------------------------- distributed BA and the CLI
+DIST_K, DIST_P, DIST_O = 32, 32768, 6   # __graft_entry__.py dryrun_multichip's problem
+DIST_ITERS = 8
+DIST_CPU_RANKS = 4
+DIST_POSE_GAIN = 0.25   # pose error after / before: the dry run's own assertion
+DIST_KF_T_ATOL, DIST_PT_ATOL = 1e-3, 5e-3  # tests/test_dist_ba.py's 1-vs-8-device bounds
+DIST_TIMEOUT_S = 600.0
+CLI_FRAMES = 36          # tests/test_examples_cli.py's rendered arc
+CLI_ATE_BOUND_M = 0.25   # its gate
+CLI_BUDGETS = (80, 160)
+CLI_SCRIPTS = {"run": "examples/run_stereo_torch.py", "eval": "examples/eval_ate_torch.py",
+               "sweep": "examples/batch_sweep_torch.py"}
+
+
+def dist_problem():
+    """The dry run's problem (__graft_entry__.py `dryrun_multichip`): K = 32
+    poses on a lateral-dominant path, P = 32768 points, each seen by O = 6
+    distinct KFs at 0.3 px noise, stereo; poses perturbed by twists of
+    sigma 0.01 (KF 0 fixed), points by 5 cm. Built with the port's se3_exp,
+    in the dry run's draw order. Returns (arrays in LocalBAProblem field
+    order, true kf_t, the initial pose error)."""
+    from gf_orb_slam2_tpu_torch.geometry import lie
+
+    rng = np.random.default_rng(0)
+    K, O, P = DIST_K, DIST_O, DIST_P
+    gt_pts = np.stack([rng.uniform(-4, 4, P), rng.uniform(-3, 3, P),
+                       rng.uniform(4, 15, P)], -1).astype(np.float32)
+    xi = np.zeros((K, 6), np.float32)
+    xi[:, 0] = 0.15 * np.arange(K)
+    xi[:, 2] = 0.02 * np.arange(K)
+    xi[:, 4] = 0.005 * np.arange(K)
+    R, t = lie.se3_exp(torch.from_numpy(xi))
+    kf_R, kf_t = R.numpy(), t.numpy()
+    obs_kf = np.stack([rng.choice(K, O, replace=False) for _ in range(P)]).astype(np.int32)
+    pc = np.einsum("kij,pj->pki", kf_R, gt_pts) + kf_t[None]
+    u = FX * pc[..., 0] / pc[..., 2] + CX + rng.normal(0, 0.3, (P, K))
+    v = FY * pc[..., 1] / pc[..., 2] + CY + rng.normal(0, 0.3, (P, K))
+    r_idx = np.arange(P)[:, None]
+    obs_uv = np.stack([u[r_idx, obs_kf], v[r_idx, obs_kf]], -1).astype(np.float32)
+    obs_ur = (u[r_idx, obs_kf] - BF / pc[r_idx, obs_kf, 2]).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    init_R, init_t = kf_R.copy(), kf_t.copy()
+    for k in range(1, K):
+        dR, dt = lie.se3_exp(torch.from_numpy(rng.normal(0, 0.01, 6).astype(np.float32)))
+        init_R[k] = dR.numpy() @ kf_R[k]
+        init_t[k] = dR.numpy() @ kf_t[k] + dt.numpy()
+    pts = gt_pts + rng.normal(0, 0.05, (P, 3)).astype(np.float32)
+    arrays = [init_R, init_t, fixed, np.ones(K, bool), pts, np.ones(P, bool), obs_kf,
+              obs_uv, obs_ur, np.ones((P, O), np.float32), np.ones((P, O), bool)]
+    return arrays, kf_t, float(np.linalg.norm(init_t - kf_t, axis=-1)[1:].max())
+
+
+def phase_dist_ba():
+    """Both distributed-BA layouts through `distributed_ba` on an NCCL world
+    of one rank (this process, the card), held against ground truth (the dry
+    run's 4x pose-error reduction), against the same problem on a 4-rank gloo
+    world on the CPU (started by parallel/launch.py), and their collectives
+    per LM iteration against the formula (tools/collective_audit_torch.py).
+    Records ms per LM iteration (median of 3, each to a synchronize), kernel
+    launches and device-busy share per iteration (torch.profiler), and the
+    ablated point-sharded step."""
+    from gf_orb_slam2_tpu_torch.convert import ba_problem_from_arrays
+    from gf_orb_slam2_tpu_torch.parallel import dist_ba, launch, mesh as pmesh
+
+    audit = _load_by_path("collective_audit_torch", "tools/collective_audit_torch.py")
+    arrays, true_t, init_terr = dist_problem()
+    cam = (FX, FY, CX, CY, BF)
+    layouts = {"point_sharded": False, "kf_sharded_pcg": True}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t_cpu = time.perf_counter()
+        cpu_world = pool.submit(
+            launch.launch, launch.run_all,
+            ([(dist_ba.solve_arrays, (arrays, cam, DIST_ITERS, None, kf, None, "cpu"))
+              for kf in layouts.values()],),
+            world_size=DIST_CPU_RANKS, device="cpu", timeout=DIST_TIMEOUT_S)
+        store = os.path.join(tempfile.mkdtemp(prefix="gfslam_nccl_"), "store")
+        pmesh.init_world(DEVICE, 0, 1, f"file://{store}", timeout=DIST_TIMEOUT_S)
+        card = {}
+        try:
+            mesh = pmesh.make_mesh(device=DEVICE)
+            prob = ba_problem_from_arrays(arrays, DEVICE)
+            local = dist_ba.local_problem(mesh, prob)
+            lam = torch.tensor(dist_ba.LAM0, dtype=torch.float32, device=DEVICE)
+            for name, kf in layouts.items():
+                t0 = time.perf_counter()
+                out = dist_ba.distributed_ba(mesh, prob, *cam, iters=DIST_ITERS, kf_sharded=kf)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                kf_t, pt_pos, cost = (t.cpu().numpy() for t in out[1:])
+                step = (dist_ba.build_pcg_ba_step(mesh, *cam) if kf
+                        else dist_ba.build_distributed_ba_step(mesh, *cam))
+                prof = profiled(lambda: step(local, lam), repeats=3)
+                counted = audit.audit_step(mesh, prob, kf)
+                rec = {"kf_t": kf_t, "pt_pos": pt_pos, "cost": float(cost),
+                       "pose_err": float(np.linalg.norm(kf_t - true_t, axis=-1)[1:].max()),
+                       "first_run_s": run_s, "ms_per_iter": prof["ms"],
+                       "launches_per_iter": prof["device_kernels"],
+                       "device_busy_ms_per_iter": prof["device_busy_ms"],
+                       "device_busy_share": prof["device_busy_ms"] / prof["ms"],
+                       "collectives_per_iter": counted["measured"],
+                       "collectives_expected": counted["expected"]}
+                if not kf:
+                    ablated = dist_ba.build_distributed_ba_step(mesh, *cam, ablate_collectives=True)
+                    rec["ablated_ms_per_iter"] = profiled(lambda: ablated(local, lam), 3)["ms"]
+                card[name] = rec
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        finally:
+            torch.distributed.destroy_process_group()
+        cpu = cpu_world.result()
+        cpu_s = time.perf_counter() - t_cpu
+    out = {"phase": "dist_ba", "K": DIST_K, "P": DIST_P, "O": DIST_O, "iters": DIST_ITERS,
+           "card_world": 1, "backend": "nccl", "cpu_ranks": DIST_CPU_RANKS,
+           "cpu_world_s": cpu_s, "init_pose_err": init_terr, "peak_allocated_mb": peak_mb,
+           "tolerance": {"kf_t": DIST_KF_T_ATOL, "pt_pos": DIST_PT_ATOL,
+                         "cost_rtol": BA_COST_RTOL, "pose_gain": DIST_POSE_GAIN},
+           "layouts": {}}
+    bad = []
+    for (name, rec), ref in zip(card.items(), cpu):
+        d_t = float(np.abs(rec["kf_t"] - ref[1]).max())
+        d_p = float(np.abs(rec["pt_pos"] - ref[2]).max())
+        d_c = abs(rec["cost"] - float(ref[3])) / max(abs(float(ref[3])), 1e-12)
+        row = {k: v for k, v in rec.items() if k not in ("kf_t", "pt_pos")}
+        row.update(cpu_cost=float(ref[3]), max_abs_dkf_t=d_t, max_abs_dpt=d_p, cost_rel_diff=d_c)
+        out["layouts"][name] = row
+        if not (np.isfinite(rec["cost"]) and rec["pose_err"] < DIST_POSE_GAIN * init_terr):
+            bad.append(f"{name}: pose error {rec['pose_err']} from {init_terr}, cost {rec['cost']}")
+        if not (d_t <= DIST_KF_T_ATOL and d_p <= DIST_PT_ATOL and d_c <= BA_COST_RTOL):
+            bad.append(f"{name}: card against the gloo world: kf_t {d_t}, pt_pos {d_p}, cost {d_c}")
+        if rec["collectives_per_iter"] != rec["collectives_expected"]:
+            bad.append(f"{name}: collectives {rec['collectives_per_iter']} against the formula "
+                       f"{rec['collectives_expected']}")
+    emit(out)
+    if bad:
+        fail("dist_ba: " + "; ".join(bad))
+    return out
+
+
+def write_euroc_arc(root):
+    """tests/test_examples_cli.py's scene in EuRoC ASL layout: the rendered
+    36-frame arc at 640x480, ground truth as state_groundtruth_estimate0 CSV,
+    and its settings YAML. Returns (sequence dir, settings, ground truth)."""
+    import cv2
+
+    world = RoomWorld(width=9.0, height=5.0, length=13.0)
+    poses = _renderer.trajectory_arc(CLI_FRAMES, radius=0.8, advance=1.5)
+    seq = os.path.join(root, "seq", "mav0")
+    cams = [os.path.join(seq, c) for c in ("cam0", "cam1")]
+    gt_dir = os.path.join(seq, "state_groundtruth_estimate0")
+    for d in [os.path.join(c, "data") for c in cams] + [gt_dir]:
+        os.makedirs(d)
+    rows, gt_rows = [], []
+    for i, (R_cw, t_cw) in enumerate(poses):
+        views = world.render_stereo(R_cw, t_cw, baseline=BASELINE_M, fx=FX, fy=FY, cx=CX, cy=CY)
+        ts_ns = int((1.0 + i / 20.0) * 1e9)
+        name = f"{ts_ns}.png"
+        for cam, im in zip(cams, views):
+            cv2.imwrite(os.path.join(cam, "data", name), np.clip(im, 0, 255).astype(np.uint8))
+        rows.append(f"{ts_ns},{name}")
+        c = -R_cw.T @ t_cw
+        q = _quat_wxyz(R_cw.T)
+        gt_rows.append(f"{ts_ns},{c[0]},{c[1]},{c[2]},{q[0]},{q[1]},{q[2]},{q[3]}"
+                       ",0,0,0,0,0,0,0,0,0")
+    for cam in cams:
+        with open(os.path.join(cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
+    gt = os.path.join(gt_dir, "data.csv")
+    with open(gt, "w") as f:
+        f.write("#timestamp, p_RS_R_x [m], ...\n" + "\n".join(gt_rows) + "\n")
+    settings = os.path.join(root, "rendered.yaml")
+    with open(settings, "w") as f:
+        f.write("Sensor: STEREO\n"
+                f"Camera.fx: {FX}\nCamera.fy: {FY}\nCamera.cx: {CX}\nCamera.cy: {CY}\n"
+                f"Camera.width: {WIDTH}\nCamera.height: {HEIGHT}\n"
+                f"Camera.bf: {BF}\nCamera.fps: 20.0\nThDepth: 40.0\n"
+                "ORBextractor.nFeatures: 500\n")
+    return os.path.dirname(seq), settings, gt
+
+
+def _quat_wxyz(R):
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2.0
+    if w < 1e-8:
+        return np.array([1.0, 0, 0, 0])
+    return np.array([w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+                     (R[1, 0] - R[0, 1]) / (4 * w)])
+
+
+def phase_cli():
+    """The user's offline chain on the card (tests/test_examples_cli.py's
+    gates): `run_stereo_torch.py --format euroc` as a subprocess with the
+    default device, `eval_ate_torch.py` on its trajectory, then
+    `batch_sweep_torch.run_one` in this process at two budgets, whose
+    launches of both kernels are counted."""
+    root = tempfile.mkdtemp(prefix="gfslam_cli_")
+    t0 = time.perf_counter()
+    seq, settings, gt = write_euroc_arc(root)
+    render_s = time.perf_counter() - t0
+    out_dir = os.path.join(root, "out")
+
+    def run(script, *args, timeout=600):
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.join(ROOT, CLI_SCRIPTS[script]), *args],
+                           capture_output=True, text=True, cwd=ROOT, timeout=timeout)
+        if p.returncode != 0:
+            fail(f"cli: {CLI_SCRIPTS[script]} exited {p.returncode}:\n"
+                 + p.stdout[-2000:] + p.stderr[-3000:])
+        return json.loads(p.stdout.strip().splitlines()[-1]), time.perf_counter() - t
+
+    summary, run_s = run("run", "--format", "euroc", "--data", seq, "--settings", settings,
+                         "--out", out_dir)
+    traj = os.path.join(out_dir, "trajectory_tum.txt")
+    metrics, eval_s = run("eval", traj, gt, "--max-dt", "0.03")
+    files = {n: os.path.exists(os.path.join(out_dir, n)) for n in
+             ("trajectory_tum.txt", "trajectory_kitti.txt", "tracking_log.jsonl")}
+
+    sweep = _load_by_path("batch_sweep_torch", CLI_SCRIPTS["sweep"])
+    args = argparse.Namespace(format="euroc", data=seq, sequence="00", settings=settings,
+                              out=os.path.join(root, "sweep"), max_frames=0, device=DEVICE)
+    hamming_cuda.reset_launch_counts()
+    rows = [sweep.run_one(args, b) for b in CLI_BUDGETS]
+    launches = dict(hamming_cuda.launch_counts)
+    rec = {"phase": "cli", "frames": CLI_FRAMES, "render_s": render_s,
+           "run_stereo": dict(summary, seconds=run_s), "eval_ate": dict(metrics, seconds=eval_s),
+           "files": files, "batch_sweep": rows, "launches_run": launches,
+           "ate_bound_m": CLI_ATE_BOUND_M}
+    emit(rec)
+    if not (summary["frames"] == CLI_FRAMES and summary["keyframes"] >= 1 and all(files.values())):
+        fail(f"cli: run_stereo_torch summary {summary}, files {files}")
+    if not (np.isfinite(metrics.get("ate_rmse", np.nan))
+            and metrics["ate_rmse"] < CLI_ATE_BOUND_M):
+        fail(f"cli: ATE {metrics.get('ate_rmse')} (bound {CLI_ATE_BOUND_M} m)")
+    if any(r["frames"] != CLI_FRAMES for r in rows):
+        fail(f"cli: batch sweep rows {rows}")
+    if not all(launches[k] > 0 for k in (MATRIX, BEST2)):
+        fail(f"cli: the batch sweep launched {launches}")
+    return rec
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1915,6 +2171,8 @@ def main():
     matrix_calls = phase_reloc_matrix(reloc_matrix)
     phase_local_ba(ba_problem)
     phase_loop_solvers(pose_graph, gba_window, sim3)
+    cli = phase_cli()
+    phase_dist_ba()
     # the best-2 kernel's headline numbers are those on the path's own masks,
     # largest shape first; the synthetic masks of phase `kernels` follow
     best2 = kernels[BEST2]
@@ -1940,7 +2198,8 @@ def main():
                            launches_hashing_path=hashing["launches_run"][name],
                            launches_map_io_path={c: n[name] for c, n in
                                                  map_io["launches_by_caller"].items()},
-                           launches_hybrid_path=hybrid["launches_run"][name])
+                           launches_hybrid_path=hybrid["launches_run"][name],
+                           launches_cli_path=cli["launches_run"][name])
                       for name, rec in kernels.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,6 +21,7 @@ import torch
 from gf_orb_slam2_tpu_torch import config as _config
 from gf_orb_slam2_tpu_torch.features.extractor import Features
 from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper, MappingStats
+from gf_orb_slam2_tpu_torch.optim.local_ba import LocalBAProblem
 from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import Frame
@@ -134,3 +135,12 @@ def features_to_torch(arrays: dict, device="cuda") -> Features:
         desc=desc_to_torch(np.asarray(arrays["desc"], np.uint32), device),
         valid=dev("valid", bool),
     )
+
+
+def ba_problem_from_arrays(arrays, device="cuda") -> LocalBAProblem:
+    """A bundle-adjustment problem's arrays (a LocalBAProblem of either
+    package fetched as numpy: a sequence in field order, or a dict by field
+    name) → the port's LocalBAProblem on `device`, dtypes kept."""
+    if isinstance(arrays, dict):
+        arrays = [arrays[f] for f in LocalBAProblem._fields]
+    return LocalBAProblem(*(torch.from_numpy(np.array(a)).to(device) for a in arrays))

@@ -168,8 +168,9 @@ def test_default_device_raises_without_cuda():
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     """In a fresh interpreter, importing the port (the mapping, loop
-    closing, relocalization, hashing and host IO slices' modules named one by
-    one) adds no jax module and nothing of the JAX
+    closing, relocalization, hashing, host IO and distributed-BA slices'
+    modules named one by one, the collective audit and the three CLI
+    scripts) adds no jax module and nothing of the JAX
     package to sys.modules (compared against what the interpreter's own
     start-up had already loaded); once torch is loaded, the port brings in
     nothing but its own modules and the standard library. It also pins
@@ -196,11 +197,17 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "gf_orb_slam2_tpu_torch.io.settings, gf_orb_slam2_tpu_torch.io.dataset, "
         "gf_orb_slam2_tpu_torch.io.keypoints, gf_orb_slam2_tpu_torch.io.charuco, "
         "gf_orb_slam2_tpu_torch.tracking.kinematics, gf_orb_slam2_tpu_torch.viz.visualizer\n"
+        "import gf_orb_slam2_tpu_torch.parallel.mesh, gf_orb_slam2_tpu_torch.parallel.dist_ba, "
+        "gf_orb_slam2_tpu_torch.parallel.launch, gf_orb_slam2_tpu_torch.parallel.scaling_bench\n"
+        "import tools.collective_audit_torch, importlib.util\n"
+        "for name in ('run_stereo_torch', 'batch_sweep_torch', 'eval_ate_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'gf_orb_slam2_tpu')]\n"
         "assert not bad, bad\n"
         "extra = {m.split('.')[0] for m in set(sys.modules) - with_torch}\n"
-        "extra -= set(sys.stdlib_module_names) | {'gf_orb_slam2_tpu_torch'}\n"
+        "extra -= set(sys.stdlib_module_names) | {'gf_orb_slam2_tpu_torch', 'tools'}\n"
         "assert not extra, extra\n"
         "assert 'gf_orb_slam2_tpu' not in sys.modules\n"
         "import torch\n"
@@ -213,6 +220,17 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
                          text=True, cwd=str(_repo_root()))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+    # the entry points import the port inside main(): no import statement of
+    # theirs, at any depth, names JAX or the JAX package
+    import ast
+
+    for rel in ("examples/run_stereo_torch.py", "examples/batch_sweep_torch.py",
+                "examples/eval_ate_torch.py", "tools/collective_audit_torch.py"):
+        tree = ast.parse((_repo_root() / rel).read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+        bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "gf_orb_slam2_tpu")]
+        assert not bad, (rel, bad)
 
 
 def _repo_root():
