@@ -13,9 +13,10 @@ good-graph selection, keyframe culling), place recognition with loop closing
 the essential graph and the global BA), hashed local maps (MIH), map and
 trajectory IO with localization mode, distributed bundle adjustment over
 torch.distributed (`parallel/`: point-sharded and KF-sharded layouts,
-`parallel.launch` starting one process per device) and the offline CLI
-(examples/*_torch.py). It imports torch and numpy only; the BoW vocabulary
-is read as data from the JAX package's assets directory.
+`parallel.launch` starting one process per device), the offline CLI and
+tools (examples/*_torch.py, tools/*_torch.py) and bench.py's headline run
+(bench_torch.py at the repository root). It imports torch and numpy only;
+the BoW vocabulary is read as data from the JAX package's assets directory.
 
 Entry points take an explicit `device` and default to "cuda"; nothing picks
 the CPU because no GPU was found. The hand-written Hamming kernels

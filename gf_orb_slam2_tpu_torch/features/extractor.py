@@ -13,6 +13,7 @@ Outputs are fixed-capacity masked SoA tensors (SURVEY.md §7.1).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -32,6 +33,11 @@ class Features(NamedTuple):
     angle: torch.Tensor     # [N] float32 radians
     desc: torch.Tensor      # [N,8] int32 words — 256-bit rBRIEF
     valid: torch.Tensor     # [N] bool
+
+    @property
+    def n(self):
+        """Valid keypoints: a 0-dim int32 tensor on the features' device."""
+        return self.valid.to(torch.int32).sum(dtype=torch.int32)
 
 
 def level_sizes(h: int, w: int, n_levels: int, scale: float) -> Tuple[Tuple[int, int], ...]:
@@ -100,6 +106,16 @@ class ORBExtractor:
         """img: [H,W] uint8 or float32 grayscale → Features."""
         f = self.extract_batch(img[None])
         return Features(*(a[0] for a in f))
+
+    @functools.cached_property
+    def sigma2(self) -> np.ndarray:
+        """Per-octave measurement variance (scale^2l), reference
+        ORBextractor mvLevelSigma2."""
+        return np.asarray([s * s for s in self.scales], np.float32)
+
+    @functools.cached_property
+    def inv_sigma2(self) -> np.ndarray:
+        return 1.0 / self.sigma2
 
     def pyramid(self, imgs):
         """imgs [B,H,W] f32 → zero-padded level stack [B,L,H0,W0]. Every

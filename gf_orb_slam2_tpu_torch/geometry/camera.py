@@ -1,4 +1,4 @@
-"""Camera distortion / stereo rectification of keypoints on torch tensors.
+"""Camera projection / distortion / stereo rectification on torch tensors.
 
 Replaces the reference's OpenCV-based calib path: cv::undistortPoints in
 Frame::UndistortKeyPoints (reference: src/Frame.cc:670 UndistortKeyPointsStereo,
@@ -35,6 +35,12 @@ class PinholeCamera(NamedTuple):
             width=cam.width, height=cam.height, fisheye=cam.fisheye,
         )
 
+    def K(self):
+        """Intrinsics [3,3] f32 on the device of `dist`."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=self.dist.device)
+
 
 def distort_radtan(xn, dist):
     """Normalized coords [..,2] → distorted normalized coords (rad-tan model)."""
@@ -67,6 +73,37 @@ def undistort_normalized(xd, dist, fisheye=False, iters=8):
         d = distort(x, dist) - x
         x = xd - d
     return x
+
+
+def project(cam: PinholeCamera, pc, apply_distortion=False):
+    """Camera-frame points [..,3] → pixel coords [..,2] (+ depth).
+
+    Returns (uv, z). Frustum validity is the caller's mask: z > 0 and in-bounds.
+    """
+    z = pc[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-8, 1e-8, z)
+    xn = pc[..., :2] * inv_z[..., None]
+    if apply_distortion:
+        xn = (distort_fisheye if cam.fisheye else distort_radtan)(xn, cam.dist)
+    u = cam.fx * xn[..., 0] + cam.cx
+    v = cam.fy * xn[..., 1] + cam.cy
+    return torch.stack([u, v], -1), z
+
+
+def backproject(cam: PinholeCamera, uv, z):
+    """Pixels [..,2] + depth → camera-frame 3D (undistorted pinhole)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx
+    y = (uv[..., 1] - cam.cy) / cam.fy
+    return torch.stack([x * z, y * z, z], -1)
+
+
+def stereo_unproject(cam: PinholeCamera, uv, disparity, bf):
+    """Rectified keypoint + disparity → camera-frame 3D point.
+
+    Reference: Frame::UnprojectStereo (src/Frame.cc:1629): z = bf / disparity.
+    """
+    z = bf / torch.clamp(disparity, min=1e-6)
+    return backproject(cam, uv, z)
 
 
 def undistort_keypoints(cam: PinholeCamera, uv):

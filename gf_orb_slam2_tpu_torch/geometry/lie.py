@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from gf_orb_slam2_tpu_torch.utils import linalg3
 from gf_orb_slam2_tpu_torch.utils.linalg3 import solve3
 
 _EPS = 1e-8
@@ -152,6 +153,15 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
+def se3_matrix(R, t):
+    """(R, t) → 4x4."""
+    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
 def se3_inv(R, t):
     Ri = R.transpose(-1, -2)
     return Ri, -_mv(Ri, t)
@@ -286,7 +296,7 @@ def horn_sim3(src, dst, fix_scale=False):
     sc = src - mu_s
     dc = dst - mu_d
     H = sc.transpose(-1, -2) @ dc  # cross-covariance [...,3,3]
-    U, S, Vt = torch.linalg.svd(H)
+    U, S, Vt = linalg3.svd(H)
     Ut = U.transpose(-1, -2)
     d = torch.sign(torch.linalg.det(Vt.transpose(-1, -2) @ Ut))
     D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
@@ -303,6 +313,6 @@ def average_quat(qs, weights=None):
     if weights is None:
         weights = torch.ones(qs.shape[:-1], dtype=qs.dtype, device=qs.device)
     M = torch.einsum("...n,...ni,...nj->...ij", weights, qs, qs)
-    _, vecs = torch.linalg.eigh(M)
+    _, vecs = linalg3.eigh(M)
     q = vecs[..., -1]
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

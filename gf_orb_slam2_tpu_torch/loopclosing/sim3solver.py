@@ -21,6 +21,7 @@ import torch
 
 from gf_orb_slam2_tpu_torch.geometry import lie
 from gf_orb_slam2_tpu_torch.utils.autodiff import row_jacobian
+from gf_orb_slam2_tpu_torch.utils import linalg3
 
 
 class Sim3Result(NamedTuple):
@@ -97,7 +98,7 @@ def _weighted_horn(a, b, w, fix_scale):
     mu_b = torch.sum(b * w[:, None], 0) / n
     ac = (a - mu_a) * w[:, None]
     H = ac.T @ (b - mu_b)
-    U, S, Vt = torch.linalg.svd(H)
+    U, S, Vt = linalg3.svd(H)
     d = torch.sign(torch.linalg.det(Vt.T @ U.T))
     D = torch.stack([torch.ones_like(d), torch.ones_like(d), d])
     R = Vt.T @ (D[:, None] * U.T)

@@ -12,7 +12,8 @@ Stage → reference:
   observation-count culling of recently created points.
 - `create_and_fuse`    ← CreateNewMapPoints (:370) + SearchInNeighbors (:634):
   epipolar-guided matching against the covisible KFs, DLT triangulation and
-  acceptance gates, then project-and-fuse duplicates in both directions.
+  acceptance gates, then project-and-fuse duplicates in both directions
+  (each half alone: `create_new_points`, `fuse_neighbors`).
 - `run_local_ba`       ← Optimizer::LocalBundleAdjustment (Optimizer.cc:618)
   via optim/local_ba.py, with good-graph KF selection (selection/good_graph).
 - `cull_keyframes`     ← KeyFrameCulling (:820): ≥90 % redundancy rule.
@@ -309,13 +310,30 @@ class LocalMapper:
         call are fused at the NEXT KF event (the reference fuses them at
         once, LocalMapping.cc:634 — a one-KF delay postpones duplicate
         merging, it never loses it). Returns (created, fused)."""
+        return self._triangulate_and_fuse(kf, True, True)
+
+    def create_new_points(self, kf: int) -> int:
+        """Triangulation alone (reference: CreateNewMapPoints
+        LocalMapping.cc:370): the first half of `create_and_fuse`, one
+        upload and one download. Returns the points created."""
+        return self._triangulate_and_fuse(kf, True, False)[0]
+
+    def fuse_neighbors(self, kf: int) -> int:
+        """Neighbour fusion alone (reference: SearchInNeighbors
+        LocalMapping.cc:634): kf's points projected into its covisible KFs
+        and theirs into kf, duplicates merged. Returns the points fused."""
+        return self._triangulate_and_fuse(kf, False, True)[1]
+
+    def _triangulate_and_fuse(self, kf: int, do_tri: bool, do_fuse: bool):
+        """The device stage of `create_and_fuse` with either half left out.
+        Returns (created, fused)."""
         s = self.store
         with s.lock:
             # world version at assembly: a loop correction while the device
             # works moves the map, and the write-backs then discard
             v0 = s.big_change_idx
-            tri = self._tri_prepare(kf)
-            fuse = self._fuse_prepare(kf)
+            tri = self._tri_prepare(kf) if do_tri else None
+            fuse = self._fuse_prepare(kf) if do_fuse else None
             if tri is None and fuse is None:
                 return 0, 0
             # one table of the event's KFs; both stages index into it

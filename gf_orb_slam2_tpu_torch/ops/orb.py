@@ -102,6 +102,92 @@ def _sample_matrix(n_bins=N_ANGLE_BINS):
     return S
 
 
+# ------------------------------------------------- standalone dense operators
+# The image-wide forms of the two stages (dense moment maps, a blurred level
+# image, rBRIEF read from it at continuous angles): the reference's own
+# formulation, kept for users and tools; the extractor runs the fused patch
+# path below. Tables are made on the input's device.
+def moment_maps(img):
+    """Dense m10/m01 maps via two 31x31 convolutions (zero padding).
+
+    img: [..., H, W] f32 — leading dims (pyramid levels) are the conv batch.
+    The sums run in float64 and are rounded to f32 once: a moment of 0-255
+    pixels reaches 3e5, and torch's f32 CPU convolution loses up to 0.6 of
+    it (0.12 for XLA's), which turns a weak corner's angle by 1e-3 rad."""
+    kx, ky = _ic_kernels()
+    k = torch.from_numpy(np.stack([kx, ky], 0)[:, None]).to(img.device, torch.float64)
+    batch = img.shape[:-2]
+    h, w = img.shape[-2:]
+    out = F.conv2d(img.reshape(-1, 1, h, w).to(torch.float64), k, padding=HALF)
+    out = out.to(torch.float32).reshape(batch + (2, h, w))
+    return out[..., 0, :, :], out[..., 1, :, :]  # m10, m01
+
+
+def ic_angles(img, yx):
+    """Orientation (radians) for keypoints yx [N,2] (row, col) on one level."""
+    m10, m01 = moment_maps(img)
+    y = yx[..., 0].to(torch.int64)
+    x = yx[..., 1].to(torch.int64)
+    return torch.atan2(m01[y, x], m10[y, x])
+
+
+def ic_angles_batched(imgs, yx):
+    """Batched orientation: imgs [L,H,W], yx [L,N,2] → [L,N]."""
+    m10, m01 = moment_maps(imgs)  # [L,H,W] each
+    li = torch.arange(imgs.shape[0], device=imgs.device)[:, None]
+    y = yx[..., 0].to(torch.int64)
+    x = yx[..., 1].to(torch.int64)
+    return torch.atan2(m01[li, y, x], m10[li, y, x])
+
+
+def gaussian_blur(img, ksize=7, sigma=2.0):
+    """Separable Gaussian blur, zero padding (reference blurs each level
+    before rBRIEF, src/ORBextractor.cc:1148 GaussianBlur(…,7,7,2,2)).
+    Batched over leading dims."""
+    g = torch.from_numpy(_gauss_kernel(ksize, sigma)).to(img.device)
+    batch = img.shape[:-2]
+    h, w = img.shape[-2:]
+    x = img.reshape(-1, 1, h, w)
+    x = F.conv2d(x, g.reshape(1, 1, 1, ksize), padding=(0, ksize // 2))
+    x = F.conv2d(x, g.reshape(1, 1, ksize, 1), padding=(ksize // 2, 0))
+    return x.reshape(batch + (h, w))
+
+
+def _brief_sample_coords(yx, angles, h, w):
+    """The rotated pattern's nearest sample pixels (py, px) [...,256,2]
+    around keypoints yx [...,2] at `angles` [...], clamped to the image."""
+    pat = torch.from_numpy(brief_pattern()).to(yx.device)  # [256,2,2] (dy,dx)
+    c, s = torch.cos(angles)[..., None, None], torch.sin(angles)[..., None, None]
+    dy, dx = pat[..., 0], pat[..., 1]
+    # rotate offsets: dy' = dx*s + dy*c ; dx' = dx*c - dy*s (image coords)
+    ry = dx * s + dy * c
+    rx = dx * c - dy * s
+    py = torch.round(yx[..., None, None, 0] + ry).to(torch.int64)
+    px = torch.round(yx[..., None, None, 1] + rx).to(torch.int64)
+    return torch.clamp(py, 0, h - 1), torch.clamp(px, 0, w - 1)
+
+
+def brief_descriptors(img_blur, yx, angles):
+    """256-bit rBRIEF → int32 words [N, 8] (the uint32 bit patterns).
+
+    img_blur: [H,W] f32 Gaussian-blurred level image.
+    yx: [N,2] float (row, col) keypoint positions in level coords.
+    angles: [N] radians.
+    """
+    py, px = _brief_sample_coords(yx, angles, *img_blur.shape)
+    vals = img_blur[py, px]  # [N,256,2]
+    return pack_bits(vals[..., 0] < vals[..., 1])
+
+
+def brief_descriptors_batched(imgs_blur, yx, angles):
+    """Batched rBRIEF: imgs_blur [L,H,W], yx [L,N,2], angles [L,N] →
+    int32 words [L,N,8] (one gather for the whole pyramid)."""
+    py, px = _brief_sample_coords(yx, angles, *imgs_blur.shape[-2:])
+    li = torch.arange(imgs_blur.shape[0], device=imgs_blur.device)[:, None, None, None]
+    vals = imgs_blur[li, py, px]  # [L,N,256,2]
+    return pack_bits(vals[..., 0] < vals[..., 1])
+
+
 class OrbTables:
     """Constant device buffers of the descriptor stage."""
 

@@ -6,7 +6,8 @@ weights, text/binary load with the binary loader added by the fork at
 TemplatedVocabulary.h:1469), on the host in numpy, as the JAX package runs
 it (`words_np`): a keyframe's transform is ~1k descriptors × levels × k
 popcounts, microseconds on the host, where a device round trip would sit in
-the keyframe event.
+the keyframe event. `words` is the same descent on the vocabulary's device
+(torch tensors in and out), for callers whose descriptors are there.
 
 - The tree is complete: level l holds k^(l+1) centers, the children of node
   i are rows i·k..i·k+k-1 of the next level, and the word count is V = k^L.
@@ -26,6 +27,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
+
+from gf_orb_slam2_tpu_torch.ops.hamming_cuda import popcount_words
 
 # set bits of every byte value
 _POPC8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
@@ -49,15 +53,23 @@ def _majority_center(desc: np.ndarray) -> np.ndarray:
 
 class Vocabulary:
     """k^L-word tree. centers: [L] arrays, level l of shape [k^(l+1), 8]
-    uint32; idf: [V] word weights."""
+    uint32; idf: [V] word weights. `device` is where `words` runs (the
+    tree's copy there is made at its first call)."""
 
-    def __init__(self, centers, k: int, weights=None):
+    def __init__(self, centers, k: int, weights=None, device="cuda"):
         self.k = k
         self.levels = len(centers)
         self.centers = [np.asarray(c, np.uint32) for c in centers]
         self.V = self.centers[-1].shape[0]
         self.idf = (np.ones(self.V, np.float32) if weights is None
                     else np.asarray(weights, np.float32))
+        self.to(device)
+
+    def to(self, device) -> "Vocabulary":
+        """Run `words` on `device` from now on; returns self."""
+        self.device = torch.device(device)
+        self._dev_centers = None
+        return self
 
     # ------------------------------------------------------------- training
     @staticmethod
@@ -111,6 +123,28 @@ class Vocabulary:
             cand = self.centers[lvl][child].view(np.uint8).reshape(n, self.k, 32)
             d = _POPC8[d8 ^ cand].sum(-1, dtype=np.int32)  # [n,k]
             idx = child[np.arange(n), d.argmin(1)]
+        return idx
+
+    def words(self, desc) -> torch.Tensor:
+        """[N,8] descriptors (uint32 numpy, or a tensor of 32-bit words) →
+        word ids [N] int64 on the vocabulary's device: the descent of
+        `words_np` as tensor ops, one [N,k] Hamming block per level (bits
+        counted by `popcount_words`: torch has no popcount), first minimum
+        wins."""
+        if self._dev_centers is None:
+            self._dev_centers = [torch.from_numpy(c.view(np.int32)).to(self.device)
+                                 for c in self.centers]
+        if isinstance(desc, np.ndarray):
+            desc = torch.from_numpy(np.ascontiguousarray(desc, np.uint32).view(np.int32))
+        elif desc.dtype == torch.uint32:
+            desc = desc.view(torch.int32)
+        desc = desc.to(self.device)
+        idx = torch.zeros(desc.shape[0], dtype=torch.int64, device=self.device)
+        slots = torch.arange(self.k, device=self.device)
+        for cents in self._dev_centers:
+            child = idx[:, None] * self.k + slots  # [N,k]
+            d = popcount_words(desc[:, None, :] ^ cents[child])
+            idx = torch.gather(child, 1, torch.argmin(d, 1, keepdim=True))[:, 0]
         return idx
 
     def bow_vector(self, desc: np.ndarray, valid: Optional[np.ndarray] = None) -> np.ndarray:
@@ -246,7 +280,8 @@ class Vocabulary:
                             **{f"centers_{i}": c for i, c in enumerate(self.centers)})
 
     @staticmethod
-    def load(path) -> "Vocabulary":
+    def load(path, device="cuda") -> "Vocabulary":
         z = np.load(path)
         levels = int(z["levels"])
-        return Vocabulary([z[f"centers_{i}"] for i in range(levels)], int(z["k"]), z["idf"])
+        return Vocabulary([z[f"centers_{i}"] for i in range(levels)], int(z["k"]), z["idf"],
+                          device)

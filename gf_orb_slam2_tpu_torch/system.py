@@ -66,6 +66,7 @@ from gf_orb_slam2_tpu_torch.io import map_io, trajectory as traj_io
 from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import LoopCloser
 from gf_orb_slam2_tpu_torch.mapping.local_mapping import LocalMapper
 from gf_orb_slam2_tpu_torch.matching import stereo as stereo_mod
+from gf_orb_slam2_tpu_torch.ops import hamming_cuda
 from gf_orb_slam2_tpu_torch.place.keyframe_db import KeyFrameDatabase
 from gf_orb_slam2_tpu_torch.place.vocabulary import Vocabulary
 from gf_orb_slam2_tpu_torch.selection.good_graph import estimate_kf_budget
@@ -726,6 +727,19 @@ class System:
         tr._cached_pool = None
         tr.relative_poses.clear()
         self.mapper.recent_points.clear()
+
+    def wait_prewarm(self, timeout=None):
+        """Finish the device's set-up before a timed run, as the JAX
+        package's `wait_prewarm` joins its compile threads: on CUDA, build
+        (nvcc) or load the Hamming kernels, which the first frame would
+        otherwise pay. The rest of the set-up already ran at construction
+        (`LoopCloser.warm_up`, whose first launch builds the kernels when
+        loop closing is on; the hash's host library). Nothing of it runs in
+        the background, so this returns when the build is done and
+        `timeout` (the JAX signature's) bounds nothing; a failed build
+        raises. On the CPU nothing is pending."""
+        if self.device.type == "cuda":
+            hamming_cuda.load()
 
     def shutdown(self):
         """Reference: System::Shutdown (System.cc:382): completes the frames

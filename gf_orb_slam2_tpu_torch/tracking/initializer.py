@@ -26,6 +26,7 @@ import torch
 
 from gf_orb_slam2_tpu_torch.geometry import triangulate
 from gf_orb_slam2_tpu_torch.tracking.pnp import det3, draw_hypotheses, valid_first
+from gf_orb_slam2_tpu_torch.utils import linalg3
 
 SIGMA = 1.0
 CHI2_H = 5.991
@@ -61,7 +62,7 @@ def _normalize(uv, valid):
 def _smallest_eigvec(A):
     """[..,9,9] symmetric → [..,3,3] eigenvector of its smallest eigenvalue
     (sign as the solver gives it: every user is sign-invariant)."""
-    return torch.linalg.eigh(A)[1][..., :, 0].reshape(A.shape[:-2] + (3, 3))
+    return linalg3.eigh(A)[1][..., :, 0].reshape(A.shape[:-2] + (3, 3))
 
 
 def _dlt_homography(p1, p2, w=None):
@@ -88,7 +89,7 @@ def _dlt_fundamental(p1, p2, w=None):
     if w is not None:
         A = A * w[..., None]
     F = _smallest_eigvec(A.transpose(-1, -2) @ A)
-    U, S, Vt = torch.linalg.svd(F)
+    U, S, Vt = linalg3.svd(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
     return (U * S[..., None, :]) @ Vt
 
@@ -140,7 +141,7 @@ def _unit(t):
 
 def _decompose_E(E):
     """E → 4 candidate (R, t) (reference: DecomposeE Initializer.cc:917)."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = linalg3.svd(E)
     d = det3(U) * det3(Vt)
     U = U * torch.where(d < 0, -1.0, 1.0)
     W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
@@ -158,7 +159,7 @@ def _decompose_H(H, K):
     ReconstructH Initializer.cc:577), the 8 cases built at once: the four
     sign patterns of (x1, x3) for d' > 0, then for d' < 0."""
     A = torch.linalg.inv_ex(K)[0] @ H @ K
-    U, w, Vt = torch.linalg.svd(A)
+    U, w, Vt = linalg3.svd(A)
     s = det3(U) * det3(Vt)
     d1, d2, d3 = w[0], w[1], w[2]
     dev, dt = H.device, H.dtype

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from gf_orb_slam2_tpu_torch.utils import linalg3
+
 _PAIR_I = (0, 0, 0, 1, 1, 2)
 _PAIR_J = (1, 2, 3, 2, 3, 3)
 N_HYP = 256
@@ -59,7 +61,7 @@ def _kabsch(X, Y, w):
     cy = (Y * w[..., None]).sum(-2) / ws
     H = torch.einsum("...ni,...nj->...ij", (X - cx[..., None, :]) * w[..., None],
                      Y - cy[..., None, :])
-    U, _, Vt = torch.linalg.svd(H)
+    U, _, Vt = linalg3.svd(H)
     V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
     d = torch.sign(det3(V @ Ut))
     one = torch.ones_like(d)
@@ -75,7 +77,7 @@ def _lstsq_min_norm(A, b):
     device (torch.linalg.lstsq on CUDA assumes full rank)."""
     m, n = A.shape[-2:]
     rtol = torch.finfo(A.dtype).eps * max(m, n)
-    return (torch.linalg.pinv(A, rtol=rtol) @ b[..., None])[..., 0]
+    return (linalg3.pinv(A, rtol) @ b[..., None])[..., 0]
 
 
 def _epnp_pose(Xw, uv_n, w):
@@ -94,7 +96,7 @@ def _epnp_pose(Xw, uv_n, w):
     c0 = (Xw * w[..., None]).sum(1) / ws                      # [B,3]
     A = Xw - c0[:, None]
     cov = torch.einsum("bni,bnj->bij", A * w[..., None], A) / ws[..., None]
-    lam, D = torch.linalg.eigh(cov)  # ascending; columns = axes
+    lam, D = linalg3.eigh(cov)  # ascending; columns = axes
     # an axis's sign is the eigen solver's choice and moves the control
     # points, hence the pose of a noisy sample: fix it (largest component
     # positive), so every device builds the same frame
@@ -114,7 +116,7 @@ def _epnp_pose(Xw, uv_n, w):
     Mv = torch.stack([zero, alpha, -v * alpha], -1).reshape(B, n, 12) * sw
     M = torch.cat([Mu, Mv], 1)
     MtM = torch.einsum("bki,bkj->bij", M, M)
-    _, vecs = torch.linalg.eigh(MtM)
+    _, vecs = linalg3.eigh(MtM)
     V = vecs[..., :4]                                         # 4 smallest
     Vr = V.transpose(-1, -2).reshape(B, 4, 4, 3)              # [B,k,ctrl,3]
     pi, pj = list(_PAIR_I), list(_PAIR_J)

@@ -6,6 +6,12 @@ is clamped away from zero (`eps`): local BA inverts the damped per-point
 Hessian blocks with `inv3`, and a near-singular block (a point seen from one
 direction only) must give a large finite inverse, not inf/NaN — which is why
 this stays the adjugate form and not `torch.linalg.inv`.
+
+`eigh`, `svd` and `pinv` are torch's decompositions made to answer as
+jnp.linalg's do on a matrix that is not finite: NaN for that matrix, where
+torch raises. cuSOLVER and LAPACK report such a matrix as not converged, and
+a raise ends the tracking thread on one degenerate input (an inf·0 in a
+zero-weight row of a RANSAC refit). On finite input they are torch's own.
 """
 from __future__ import annotations
 
@@ -45,3 +51,36 @@ def solve3(M, b, eps: float = 1e-12):
     """Batched 3x3 solve M x = b (Cramer via adjugate), written as an
     elementwise multiply-sum."""
     return (adjugate3(M) * b[..., None, :]).sum(-1) / _clamped_det(M, eps)[..., None]
+
+
+def _finite_or_eye(A):
+    """A with every matrix that is not finite replaced by the identity, and
+    the mask [..] of the finite ones."""
+    ok = torch.isfinite(A).flatten(-2).all(-1)
+    eye = torch.eye(A.shape[-2], A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.where(ok[..., None, None], A, eye), ok
+
+
+def _nan_unless(ok, x, k):
+    """x with NaN where `ok` is false; x has `k` dims past ok's."""
+    return torch.where(ok.reshape(ok.shape + (1,) * k), x, float("nan"))
+
+
+def eigh(A):
+    """torch.linalg.eigh, NaN for a matrix that is not finite."""
+    A, ok = _finite_or_eye(A)
+    lam, V = torch.linalg.eigh(A)
+    return _nan_unless(ok, lam, 1), _nan_unless(ok, V, 2)
+
+
+def svd(A):
+    """torch.linalg.svd, NaN for a matrix that is not finite."""
+    A, ok = _finite_or_eye(A)
+    U, S, Vt = torch.linalg.svd(A)
+    return _nan_unless(ok, U, 2), _nan_unless(ok, S, 1), _nan_unless(ok, Vt, 2)
+
+
+def pinv(A, rtol):
+    """torch.linalg.pinv, NaN for a matrix that is not finite."""
+    A, ok = _finite_or_eye(A)
+    return _nan_unless(ok, torch.linalg.pinv(A, rtol=rtol), 2)

@@ -20,6 +20,7 @@ from gf_orb_slam2_tpu.geometry import lie as jlie
 from gf_orb_slam2_tpu.tracking import pnp as jpnp
 from gf_orb_slam2_tpu_torch.geometry import lie as tlie
 from gf_orb_slam2_tpu_torch.tracking import pnp as tpnp
+from gf_orb_slam2_tpu_torch.utils import linalg3
 
 torch.set_num_threads(1)
 
@@ -172,6 +173,59 @@ def test_rank_deficient_sample_is_finite_in_both():
     assert torch.equal(sol, torch.zeros(1, 3))
     np.testing.assert_allclose(np.asarray(jnp.linalg.lstsq(jnp.zeros((6, 3)), jnp.ones(6))[0]),
                                sol[0].numpy())
+
+
+@pytest.mark.parametrize("bad", ("nan_pixel", "inf_point"))
+def test_unused_non_finite_point_matches_jax(bad):
+    """An unmatched keypoint may carry a NaN pixel or an infinite map point:
+    weight 0 times that is NaN in the weighted refit (in MᵀM for the pixel,
+    already in the covariance for the point). The JAX package's eigh answers
+    NaN there, the refit loses and the winning hypothesis stands; torch's
+    eigh raised instead (cuSOLVER: not converged). The port gives JAX's
+    answer: its own winning hypothesis, with JAX's inliers."""
+    Xw, uv, valid, _, _ = problem("recover")
+    valid[0] = False
+    if bad == "nan_pixel":
+        uv[0] = np.nan
+    else:
+        Xw[0] = np.inf
+    key = jax.random.PRNGKey(0)
+    draws = T(jax_draws(key, int(valid.sum())))
+    want = jpnp.pnp_ransac(jnp.asarray(Xw), jnp.asarray(uv), jnp.asarray(valid),
+                           FX, FY, CX, CY, key)
+    got = tpnp.pnp_ransac(T(Xw), T(uv), T(valid), FX, FY, CX, CY, draws=draws)
+    assert bool(want.ok) and bool(got.ok)
+    np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(want.inliers))
+    assert int(got.n_inliers) == int(want.n_inliers)
+    Rs, ts = tpnp.epnp_hypotheses(T(Xw), T(uv), T(valid), FX, FY, CX, CY, draws)
+    pc = T(Xw) @ Rs.transpose(-1, -2) + ts[:, None]
+    z = torch.clamp(pc[..., 2], min=1e-6)
+    e2 = ((FX * pc[..., 0] / z + CX - T(uv)[:, 0]) ** 2
+          + (FY * pc[..., 1] / z + CY - T(uv)[:, 1]) ** 2)
+    best = torch.argmax((T(valid) & (e2 < 25.0) & (pc[..., 2] > 0)).sum(-1))
+    assert torch.equal(got.R, Rs[best]) and torch.equal(got.t, ts[best])
+
+
+@pytest.mark.parametrize("op", ("eigh", "svd", "pinv"))
+def test_decompositions_answer_nan_for_a_non_finite_matrix(op):
+    """utils/linalg3's eigh / svd / pinv: torch's own answer for a finite
+    matrix, NaN for the one that is not (where torch raises), as
+    jnp.linalg's."""
+    rng = np.random.default_rng(4)
+    A = rng.normal(size=(3, 5, 5)).astype(np.float32)
+    A = A @ A.transpose(0, 2, 1)
+    A[1, 2, 3] = A[1, 3, 2] = np.inf
+    A[2, 0, 0] = np.nan
+    fn = {"eigh": linalg3.eigh, "svd": linalg3.svd,
+          "pinv": lambda a: (linalg3.pinv(a, 1e-6),)}[op]
+    ref = {"eigh": torch.linalg.eigh, "svd": torch.linalg.svd,
+           "pinv": lambda a: (torch.linalg.pinv(a, rtol=1e-6),)}[op]
+    with pytest.raises(torch.linalg.LinAlgError):
+        ref(T(A))
+    got = fn(T(A))
+    for g, w in zip(got, ref(T(A[:1]))):
+        assert torch.equal(g[:1], w)
+        assert torch.isnan(g[1:]).all()
 
 
 def test_too_few_valid_points_clamp_their_draws():

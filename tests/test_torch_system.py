@@ -169,12 +169,12 @@ def test_default_device_raises_without_cuda():
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     """In a fresh interpreter, importing the port (the mapping, loop
     closing, relocalization, hashing, host IO and distributed-BA slices'
-    modules named one by one, the collective audit and the three CLI
-    scripts) adds no jax module and nothing of the JAX
-    package to sys.modules (compared against what the interpreter's own
-    start-up had already loaded); once torch is loaded, the port brings in
-    nothing but its own modules and the standard library. It also pins
-    full-f32 matmul."""
+    modules named one by one, the collective audit, the three CLI scripts,
+    bench_torch.py and the two offline tools) adds no jax module and
+    nothing of the JAX package to sys.modules (compared against what the
+    interpreter's own start-up had already loaded); once torch is loaded,
+    the port brings in nothing but its own modules and the standard
+    library. It also pins full-f32 matmul."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -200,8 +200,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "import gf_orb_slam2_tpu_torch.parallel.mesh, gf_orb_slam2_tpu_torch.parallel.dist_ba, "
         "gf_orb_slam2_tpu_torch.parallel.launch, gf_orb_slam2_tpu_torch.parallel.scaling_bench\n"
         "import tools.collective_audit_torch, importlib.util\n"
-        "for name in ('run_stereo_torch', 'batch_sweep_torch', 'eval_ate_torch'):\n"
-        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "for path in ('examples/run_stereo_torch.py', 'examples/batch_sweep_torch.py',\n"
+        "             'examples/eval_ate_torch.py', 'bench_torch.py',\n"
+        "             'tools/train_vocabulary_torch.py', 'tools/charuco_tools_torch.py'):\n"
+        "    spec = importlib.util.spec_from_file_location(path.split('/')[-1][:-3], path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'gf_orb_slam2_tpu')]\n"
