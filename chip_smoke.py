@@ -3,18 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from gf_orb_slam2_tpu_torch/csrc (the
-Hamming distance matrix on the tensor cores, and the masked best-2 search
-that never writes the matrix), holds each against its plain PyTorch version
-on the card, then drives the port's main path — synchronous stereo tracking
+Builds the four hand-written CUDA kernels from gf_orb_slam2_tpu_torch/csrc
+(1a the Hamming distance matrix on the tensor cores, 1b the masked best-2
+search that never writes the matrix, 2 the whole pose LM of a frame in one
+launch, 3 the whole lazier-greedy good-feature selection in one launch),
+holds 1a and 1b against their plain PyTorch versions on the card, then
+drives the port's main path — synchronous stereo tracking
 through `System.track_stereo` at the headline configuration (640x480, 800 ORB
 features, 4096-point local pool, good-feature selection on) with synchronous
 local mapping on every keyframe event (triangulation, fusion, local BA, KF
 culling) — over 150 rendered frames, checks the trajectory against the
 renderer's ground truth, that every keyframe event went through the mapper
-and that both kernels were launched by the run (the mapper's launches of the
-best-2 kernel counted apart). Then it drives the other entry point of the
-same system on the first 72 of those frames, as bench.py does: 16 frames through
+and that every kernel was launched by the run (two pose LMs and one
+selection a fused frame; the mapper's launches of the best-2 kernel counted
+apart). Then it drives the other entry point of the same system on the same
+150 frames, as bench.py does: 16 frames through
 `track_stereo`, the rest through `track_stereo_pipelined` with the
 asynchronous mapping worker, then `flush_pipeline()` — and checks that every
 frame comes back once and OK, the trajectory, the worker's BA accounting,
@@ -43,7 +46,7 @@ circuit (tests/test_reloc_rendered.py: LOST in the blackout, OK within 10
 frames, no reset, the tail's ATE), `track_monocular` on the same circuit
 with loop closing on and off (tests/test_mono_rendered.py: the two-view
 initializer, a loop corrected with a free scale, the Sim3-aligned ATE), and
-`track_rgbd` on the room tour's first 100 frames with the renderer's own ray
+`track_rgbd` on the room tour's first 150 frames with the renderer's own ray
 depth (every frame OK from frame 0, ATE). Their best-2 masks (the monocular
 initializer's window search, a monocular and an RGB-D tracking search) and
 the relocalization's matrix inputs join phase `path_masks`.
@@ -57,7 +60,7 @@ localization mode and relocalized against, then tracked through both
 drivers (tests/test_map_io.py's gates: the store equal after the load, OK
 within 5 frames and on 80 % of them, camera centres within 0.1 m, no
 keyframe added, the device map mirror equal to the store), and the room
-tour's first 80 frames with the 13-state (hybrid) good-feature selection and planner
+tour's first 150 frames with the 13-state (hybrid) good-feature selection and planner
 odometry fed the ground-truth poses (every predicting frame predicted from
 the buffer, ATE < 0.10 m; the selection's ms and kernels beside the main
 path's). The `build` phase compiles the hash's host library (g++) beside
@@ -94,6 +97,17 @@ records the loops closed, the largest local BA window and whether the
 good-graph trigger (a window above `good_graph.kf_thres` KFs) fired, the
 per-call mean, median and p90, and `prewarm_s`, beside the card's nvidia-smi
 name and power limit.
+
+Phase `lm_select` holds kernels 2 and 3 against their plain versions on
+the inputs the paths gave them: the main path's last motion-model and
+local-map solves and the accepted relocalization's LM polish (R and t within
+1e-2 — the measured level of an LM step taken differently at a cost plateau,
+with headroom —, inliers exact; no valid point, every point behind the camera, a
+non-finite point), the main path's last selection (D = 7) and the hybrid
+phase's (D = 13) on the same uniforms (the same picks, or near-ties within
+0.02 and the objective within 1e-3). Every path is gated on its own kernels
+having launched: the pose LM on every tracking path and once per solved
+relocalization candidate, the selection on every good-feature path.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code. The last line is {"ok": true, "device": {...}} and is
@@ -133,7 +147,8 @@ from gf_orb_slam2_tpu_torch.loopclosing.loop_closer import GBA_THREAD, STAGES  #
 from gf_orb_slam2_tpu_torch.loopclosing.sim3solver import optimize_sim3, solve_sim3  # noqa: E402
 from gf_orb_slam2_tpu_torch.mapping import local_mapping  # noqa: E402
 from gf_orb_slam2_tpu_torch.matching import hamming as hamming_mod, matcher  # noqa: E402
-from gf_orb_slam2_tpu_torch.ops import hamming_cuda  # noqa: E402
+from gf_orb_slam2_tpu_torch.ops import cuda_lib, greedy_select_cuda, hamming_cuda  # noqa: E402
+from gf_orb_slam2_tpu_torch.ops import pose_lm_cuda  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim import global_ba  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.local_ba import (  # noqa: E402
     LocalBAProblem, local_bundle_adjustment,
@@ -170,11 +185,9 @@ WIDTH, HEIGHT = 640, 480
 BASELINE_M = 0.1
 BF = FX * BASELINE_M
 N_FRAMES = 150
-# depths cut so that the whole script stays well inside its time limit:
-# phase `bench` runs the pipelined System over the tour's full 300 frames
-PIPELINED_FRAMES = 72
-HYBRID_FRAMES = 80
-RGBD_FRAMES = 100
+PIPELINED_FRAMES = 150
+HYBRID_FRAMES = 150
+RGBD_FRAMES = 150
 BENCH_SUBPROCESS_FRAMES = 60  # the subprocess form: its first 60 frames
 TOUR_FRAMES = 300
 ATE_BOUND_M = 0.05  # the JAX package's synchronous gate with mapping on (tests/test_rendered_ate.py)
@@ -203,13 +216,20 @@ RGBD_ATE_BOUND_M = 0.10
 
 # published peaks of one H100 SXM (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12         # outside the tensor cores
 INT8_TENSOR_OPS_PER_S = 1979e12  # the data sheet lists no 1-bit rate; int8 is the nearest
 POPC_PER_CLOCK_PER_SM = 16       # NVIDIA's CUDA C++ programming manual, arithmetic throughput, cc 9.0
 
 MATRIX, BEST2 = "hamming_distance_matrix", "hamming_masked_best2"
+POSE_LM, GREEDY = "pose_lm", "greedy_select"
 SOURCES = {MATRIX: "gf_orb_slam2_tpu_torch/csrc/hamming.cu",
-           BEST2: "gf_orb_slam2_tpu_torch/csrc/hamming_best2.cu"}
-REPLACES = "gf_orb_slam2_tpu/ops/pallas_hamming.py:23"
+           BEST2: "gf_orb_slam2_tpu_torch/csrc/hamming_best2.cu",
+           POSE_LM: "gf_orb_slam2_tpu_torch/csrc/pose_lm.cu",
+           GREEDY: "gf_orb_slam2_tpu_torch/csrc/greedy_select.cu"}
+REPLACES = {MATRIX: "gf_orb_slam2_tpu/ops/pallas_hamming.py:23",
+            BEST2: "gf_orb_slam2_tpu/ops/pallas_hamming.py:23",
+            POSE_LM: "gf_orb_slam2_tpu/optim/pose_opt.py:81",
+            GREEDY: "gf_orb_slam2_tpu/selection/good_feature.py:32"}
 PATH_SHAPES = ((4096, 1024), (1024, 1024))  # (local + leftover search), (stereo + motion search)
 CHECK_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777), (1, 1), (0, 5))
 BEST2_CHECK_SHAPES = CHECK_SHAPES + ((5, 1), (5, 0))
@@ -349,10 +369,13 @@ def phase_build():
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         host = pool.submit(mih_mod.build)
-        hamming_cuda.load(verbose=True)
+        cuda_lib.load(verbose=True)  # every csrc/*.cu, -Xptxas -v printed
         mih_path = host.result()  # raises what the g++ build raised
     mih_mod.load()
-    emit({"phase": "build", "sources": sorted(SOURCES.values()),
+    built = sorted(os.path.relpath(src, ROOT) for src in cuda_lib.SOURCES)
+    if built != sorted(SOURCES.values()):
+        fail(f"the build compiled {built}, the smoke checks {sorted(SOURCES.values())}")
+    emit({"phase": "build", "sources": built,
           "arch": "sm_90a", "host_library": os.path.relpath(mih_path, ROOT),
           "host_source": os.path.relpath(mih_mod.SOURCE, ROOT),
           "seconds": round(time.perf_counter() - t0, 2)})
@@ -448,7 +471,7 @@ def time_best2(da, db, mask):
 def kernel_record(name, tally, shapes, library_ms):
     head = shapes[0]  # the larger path shape
     return {
-        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES,
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "ok": tally.mismatches == 0, "mismatches": tally.mismatches,
         "max_abs_err": tally.max_abs_err, "cases": tally.cases, "tolerance": 0,
         "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
@@ -582,17 +605,21 @@ def spread(values):
 
 class KeepLast:
     """Around `module.name`: keeps clones of the tensor arguments (and the
-    keyword arguments) of its last call."""
+    keyword arguments) of its last `keep` calls; `args` is the last."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep=1):
         self.module, self.name = module, name
-        self.args = None
+        self.calls = collections.deque(maxlen=keep)
+
+    @property
+    def args(self):
+        return self.calls[-1] if self.calls else None
 
     def __enter__(self):
         self._fn = fn = getattr(self.module, self.name)
 
         def run(*a, **k):
-            self.args = ([x.clone() if torch.is_tensor(x) else x for x in a], dict(k))
+            self.calls.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(k)))
             return fn(*a, **k)
 
         setattr(self.module, self.name, run)
@@ -605,27 +632,32 @@ class KeepLast:
 def profiled(fn, repeats=5):
     """Host ms of `fn` to a synchronized result (median of `repeats` after a
     warm-up call), and the device kernels and device-busy ms of one call
-    under torch.profiler."""
+    under torch.profiler. With `repeats=0` the one profiled call is all:
+    its host ms (profiler on) and its result are returned."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     ms = []
+    if repeats:
+        fn()
+        torch.cuda.synchronize()
     for _ in range(repeats):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        result = fn()
         torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) * 1e3
     ka = [e for e in prof.key_averages()
           if "cuda" in str(getattr(e, "device_type", "")).lower()
           and not getattr(e, "is_user_annotation", False)]
     dev_us = sum(getattr(e, "self_device_time_total", None)
                  or getattr(e, "self_cuda_time_total", 0) for e in ka)
-    return {"ms": statistics.median(ms), "device_kernels": sum(e.count for e in ka),
-            "device_busy_ms": dev_us / 1e3}
+    out = {"ms": statistics.median(ms) if ms else profiled_ms,
+           "device_kernels": sum(e.count for e in ka), "device_busy_ms": dev_us / 1e3}
+    return dict(out, result=result) if not repeats else out
 
 
 def selection_cost(kept):
@@ -652,14 +684,19 @@ def phase_main_path(imgs, gt, render_s):
 
     slam = System(headline_config(), device=DEVICE)  # the card: no CPU fallback
     est, frame_ms = [], []
-    with Capture(slam) as cap, KeepLast(good_feature, "lazier_greedy_select") as sel:
+    with Capture(slam) as cap, KeepLast(good_feature, "lazier_greedy_select") as sel, \
+            KeepLast(pose_opt, "pose_optimization", keep=2) as solves:
         hamming_cuda.reset_launch_counts()
         for i, (left, right) in enumerate(imgs):
             if i == N_FRAMES - 1:  # the last frame's tracking calls
                 cap.label = "tracking"
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            T = slam.track_stereo(left, right, i / 20.0)
+            if i == N_FRAMES - 1:  # the last frame's device kernels, profiled
+                last = profiled(lambda: slam.track_stereo(left, right, i / 20.0), repeats=0)
+                T = last.pop("result")
+            else:
+                T = slam.track_stereo(left, right, i / 20.0)
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             cap.label = None
@@ -699,6 +736,11 @@ def phase_main_path(imgs, gt, render_s):
         "mapper_ms_total_per_event": spread([sum(e.values()) for e in event_ms[1:]]),
         "kernel_launches": launches,
         "kernel_launches_mapping": cap.mapper_launches,
+        "pose_lm_per_fused_frame": launches[POSE_LM] / max(n_fused, 1),
+        "greedy_select_per_fused_frame": launches[GREEDY] / max(n_fused, 1),
+        "last_frame_device_kernels": last["device_kernels"],
+        "last_frame_device_busy_ms": last["device_busy_ms"],
+        "last_frame_ms_profiled": last["ms"],
         "median_inliers": statistics.median(s.n_inliers for s in stats[1:]),
     }
 
@@ -739,13 +781,23 @@ def phase_main_path(imgs, gt, render_s):
         fail(f"the mapper launched {BEST2} no time")
     if launches[MATRIX] < 1:
         fail(f"{MATRIX} was not launched on the main path")
+    if launches[POSE_LM] < 2 * n_fused:
+        fail(f"{POSE_LM} launched {launches[POSE_LM]} times for {n_fused} fused frames "
+             "(< 2 per frame: the motion-model and the local-map solves)")
+    if launches[GREEDY] < n_fused:
+        fail(f"{GREEDY} launched {launches[GREEDY]} times for {n_fused} fused frames "
+             "(< 1 per frame: the local step's budgeted selection)")
     if not (np.isfinite(est).all() and est.shape == (N_FRAMES, 3)):
         fail("trajectory is not finite")
     if not ate < ATE_BOUND_M:
         fail(f"ATE {ate:.4f} m >= {ATE_BOUND_M} m")
     if cap.ba_problem is None:
         fail("no local BA problem was assembled")
-    return rec, cap.calls, cap.ba_problem, dict(system=slam, est=est)
+    if len(solves.calls) != 2 or sel.args is None:
+        fail("the last frame's two pose solves and its selection were not captured")
+    inputs = {"pose": list(zip(("motion_model", "local_map"), solves.calls)),
+              "select": [("main_path_d7", sel.args)]}
+    return rec, cap.calls, cap.ba_problem, dict(system=slam, est=est), inputs
 
 
 def _mirror_stale_rows(store):
@@ -880,6 +932,9 @@ def phase_pipelined(imgs, gt, sync_ate):
         "frames_returned": len(est), "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
         "kernel_launches": launches,
         "best2_tracking_per_stream_frame": launches["tracking"][BEST2] / max(n_stream, 1),
+        "pose_lm_tracking_per_stream_frame": launches["tracking"][POSE_LM] / max(n_stream, 1),
+        "greedy_select_tracking_per_stream_frame":
+            launches["tracking"][GREEDY] / max(n_stream, 1),
         "driver_ms": {k: spread(v) for k, v in timers.items()},
         "worker_queue_depth_max": max(queue_depth, default=0),
         "worker_max_batch": w.max_batch if w else 0,
@@ -917,6 +972,10 @@ def phase_pipelined(imgs, gt, sync_ate):
         fail(f"the mapping worker launched {BEST2} no time")
     if launches["tracking"][MATRIX] + launches["mapping"][MATRIX] < 1:
         fail(f"{MATRIX} was not launched in the pipelined run")
+    if launches["tracking"][POSE_LM] < 2 * n_stream or launches["tracking"][GREEDY] < n_stream:
+        fail(f"tracking launched {POSE_LM} {launches['tracking'][POSE_LM]} and {GREEDY} "
+             f"{launches['tracking'][GREEDY]} times for {n_stream} streamed frames "
+             "(< 2 and < 1 per frame)")
     if stale:
         fail(f"{stale} of {n_valid} valid points differ between the mirror and the store")
     if sync_errors:
@@ -1035,6 +1094,9 @@ def phase_bench(tour, tour_gt, smi):
         "launches_construction": construction,
         "launches_run": launches, "launches_by_thread": by_thread,
         "best2_tracking_per_stream_frame": by_thread["tracking"][BEST2] / max(n_stream, 1),
+        "pose_lm_tracking_per_stream_frame": by_thread["tracking"][POSE_LM] / max(n_stream, 1),
+        "greedy_select_tracking_per_stream_frame":
+            by_thread["tracking"][GREEDY] / max(n_stream, 1),
     }
     emit(rec)
     if sub is None or p.returncode != 0:
@@ -1062,6 +1124,10 @@ def phase_bench(tour, tour_gt, smi):
              f"{n_stream} streamed frames (< 4 per frame)")
     if by_thread["tracking"][MATRIX] < 1:
         fail(f"bench: the tracking thread did not launch {MATRIX}")
+    if by_thread["tracking"][POSE_LM] < 2 * n_stream or by_thread["tracking"][GREEDY] < n_stream:
+        fail(f"bench: tracking launched {POSE_LM} {by_thread['tracking'][POSE_LM]} and {GREEDY} "
+             f"{by_thread['tracking'][GREEDY]} times for {n_stream} streamed frames "
+             "(< 2 and < 1 per frame)")
     return rec
 
 
@@ -1286,6 +1352,9 @@ def phase_loop(circuit, render_s):
     if cap.launches[MATRIX] < 1 or cap.launches[BEST2] < 1:
         fail(f"the loop closer launched {MATRIX} {cap.launches[MATRIX]} and {BEST2} "
              f"{cap.launches[BEST2]} times")
+    if launches[POSE_LM] < 1 or launches[GREEDY] < 1:
+        fail(f"the loop circuit's tracking launched {POSE_LM} / {GREEDY} "
+             f"{launches[POSE_LM]} / {launches[GREEDY]} times")
     if lc.last_pose_graph is None or lc.last_gba is None:
         fail("no essential graph or global BA was built")
     sim3 = dict(cap.sim3, draws=np.asarray(lc.sim3_draws(cap.sim3["kf"], cap.sim3["c"],
@@ -1381,10 +1450,11 @@ def phase_loop_solvers(pg, gba_window, sim3):
 # ------------------------------------------- relocalization, mono, RGB-D
 class Probe:
     """Around one System's methods (obj, name, label): attributes each
-    launch of the two Hamming kernels to the innermost labelled method it
-    was made in ("other" outside them), and keeps copies of the last `keep`
-    inputs per label of each kernel — the best-2 kernel's (da, db, mask),
-    the matrix kernel's (da, db) — for the labels in `record`."""
+    launch of the four kernels (the two Hamming kernels, the pose LM, the
+    greedy selection) to the innermost labelled method it was made in
+    ("other" outside them), and keeps copies of the last `keep` inputs per
+    label of each Hamming kernel — the best-2 kernel's (da, db, mask), the
+    matrix kernel's (da, db) — for the labels in `record`."""
 
     def __init__(self, targets, keep=4):
         self.targets = targets
@@ -1397,15 +1467,17 @@ class Probe:
 
     def __enter__(self):
         self._b2, self._mx = hamming_mod.distance_best2, hamming_mod.distance_matrix
+        self._lm, self._sel = pose_opt.pose_optimization, good_feature.lazier_greedy_select
 
-        def counted(fn, name, kept, n_in):
-            def run(*a):
+        def counted(fn, kept=None, n_in=0):
+            def run(*a, **k):
                 label = self._stack[-1] if self._stack else "other"
-                if label in self.record:
+                if kept is not None and label in self.record:
                     kept[label].append(tuple(x.clone() for x in a[:n_in]))
-                before = hamming_cuda.launch_counts[name]
-                out = fn(*a)
-                self.launches[label][name] += hamming_cuda.launch_counts[name] - before
+                before = dict(hamming_cuda.launch_counts)
+                out = fn(*a, **k)
+                for name, n in hamming_cuda.launch_counts.items():
+                    self.launches[label][name] += n - before[name]
                 return out
             return run
 
@@ -1418,14 +1490,17 @@ class Probe:
                     self._stack.pop()
             return run
 
-        hamming_mod.distance_best2 = counted(self._b2, BEST2, self.best2, 3)
-        hamming_mod.distance_matrix = counted(self._mx, MATRIX, self.matrix, 2)
+        hamming_mod.distance_best2 = counted(self._b2, self.best2, 3)
+        hamming_mod.distance_matrix = counted(self._mx, self.matrix, 2)
+        pose_opt.pose_optimization = counted(self._lm)
+        good_feature.lazier_greedy_select = counted(self._sel)
         for obj, name, label in self.targets:
             setattr(obj, name, labelled(getattr(obj, name), label))
         return self
 
     def __exit__(self, *exc):
         hamming_mod.distance_best2, hamming_mod.distance_matrix = self._b2, self._mx
+        pose_opt.pose_optimization, good_feature.lazier_greedy_select = self._lm, self._sel
         for obj, name, _ in self.targets:
             delattr(obj, name)  # the instance attribute: the class's method again
 
@@ -1492,6 +1567,8 @@ def phase_reloc(circuit):
     ate_tail = (ate_rmse(np.stack([est[i] for i in tail]), np.stack([gt[i] for i in tail]))
                 if len(tail) >= 3 else float("nan"))
     accepted = [a for a in attempts if a.kf >= 0]
+    n_solved = sum(a.n_solved for a in attempts)
+    stages, polish = reloc_stages(step_args) if step_args else (None, None)
     rec = {
         "phase": "reloc", "frames": RELOC_FRAMES, "blackout": [BLACKOUT[0], BLACKOUT[-1]],
         "rewind": REWIND, "lost_frames": [i for i, st in enumerate(states) if st == "LOST"],
@@ -1505,8 +1582,9 @@ def phase_reloc(circuit):
         "reloc_ms_per_success": spread([a.ms for a in accepted]),
         "tail_frames": len(tail), "ate_tail_m": ate_tail, "ate_tail_bound_m": RELOC_TAIL_ATE_M,
         "launches_run": launches, "launches_by_caller": probe.launches,
+        "candidates_solved": n_solved,
         "frame_ms_median": statistics.median(frame_ms),
-        "accepted_candidate_by_stage": reloc_stages(step_args) if step_args else None,
+        "accepted_candidate_by_stage": stages,
     }
     emit(rec)
     if "LOST" not in states[BLACKOUT[0]:BLACKOUT[-1] + 2]:
@@ -1521,14 +1599,21 @@ def phase_reloc(circuit):
         fail(f"post-relocalization tail: {len(tail)} frames, ATE {ate_tail} m")
     if probe.launches["reloc"][MATRIX] < 1:
         fail(f"relocalization launched {MATRIX} no time")
-    return rec, list(probe.matrix["reloc"])
+    if probe.launches["reloc"][POSE_LM] != n_solved:
+        fail(f"relocalization launched {POSE_LM} {probe.launches['reloc'][POSE_LM]} times for "
+             f"{n_solved} solved candidates (one LM polish each)")
+    if probe.launches["tracking"][POSE_LM] < 1 or probe.launches["tracking"][GREEDY] < 1:
+        fail(f"tracking on the circuit launched {POSE_LM} / {GREEDY} "
+             f"{probe.launches['tracking'][POSE_LM]} / {probe.launches['tracking'][GREEDY]} times")
+    return rec, list(probe.matrix["reloc"]), polish
 
 
 def reloc_stages(args):
     """One relocalization candidate's `reloc_step` on its own inputs, whole
     and by stage (1a `match_all`, the EPnP RANSAC, the LM polish): host ms
     to a synchronized result (median of 5 after a warm-up call), and the
-    device kernels and device-busy ms of one call under torch.profiler."""
+    device kernels and device-busy ms of one call under torch.profiler.
+    Also returns the LM polish's inputs (the pose LM's call, 4 × 10)."""
     cfg, scales, ref_desc, ref_valid, pt_pos, kp_uv, kp_oct, kp_ur, kp_valid, kp_desc, draws = args
     cam = cfg.camera
 
@@ -1547,17 +1632,18 @@ def reloc_stages(args):
 
     res_p = ransac()
 
+    polish_args = ([res_p.R, res_p.t, pos, kp_uv, torch.where(valid, kp_ur, -1.0),
+                    tracker_mod._inv_sigma2(scales, kp_oct), valid,
+                    cam.fx, cam.fy, cam.cx, cam.cy, cam.bf], {})
+
     def polish():
-        return pose_opt.pose_optimization(
-            res_p.R, res_p.t, pos, kp_uv, torch.where(valid, kp_ur, -1.0),
-            tracker_mod._inv_sigma2(scales, kp_oct), valid,
-            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+        return pose_opt.pose_optimization(*polish_args[0])
 
     out = {"matches": int(valid.sum())}
     for name, fn in (("reloc_step", lambda: tracker_mod.reloc_step(*args)),
                      ("match_all", match), ("epnp_ransac", ransac), ("pose_lm", polish)):
         out[name] = profiled(fn)
-    return out
+    return out, polish_args
 
 
 def mono_config(enabled):
@@ -1646,6 +1732,9 @@ def phase_mono(circuit):
     if probe.launches["mono_init"][BEST2] < 1 or probe.launches["tracking"][BEST2] < 1:
         fail(f"mono initialization / tracking launched {BEST2} "
              f"{probe.launches['mono_init'][BEST2]} / {probe.launches['tracking'][BEST2]} times")
+    if probe.launches["tracking"][POSE_LM] < 1 or probe.launches["tracking"][GREEDY] < 1:
+        fail(f"mono tracking launched {POSE_LM} / {GREEDY} {probe.launches['tracking'][POSE_LM]}"
+             f" / {probe.launches['tracking'][GREEDY]} times")
     calls = probe.calls("mono_init", "mono_init", last=1) + probe.calls("tracking", "mono_tracking")
     return rec, calls
 
@@ -1731,6 +1820,9 @@ def phase_rgbd(imgs, gt, stereo_ate):
     if probe.launches["tracking"][BEST2] < 1 or probe.launches["mapping"][BEST2] < 1:
         fail(f"RGB-D tracking / mapping launched {BEST2} {probe.launches['tracking'][BEST2]} / "
              f"{probe.launches['mapping'][BEST2]} times")
+    if probe.launches["tracking"][POSE_LM] < 1 or probe.launches["tracking"][GREEDY] < 1:
+        fail(f"RGB-D tracking launched {POSE_LM} / {GREEDY} {probe.launches['tracking'][POSE_LM]}"
+             f" / {probe.launches['tracking'][GREEDY]} times")
     return rec, probe.calls("tracking", "rgbd_tracking")
 
 
@@ -1829,6 +1921,9 @@ def phase_hashing(circuit, ate_covis):
         fail(f"hash-combined ATE {ate} m, covisibility {ate_covis} m (bound {bound} m)")
     if probe.launches["tracking"][BEST2] < 1:
         fail(f"hashed tracking launched {BEST2} no time")
+    if probe.launches["tracking"][POSE_LM] < 1 or probe.launches["tracking"][GREEDY] < 1:
+        fail(f"hashed tracking launched {POSE_LM} / {GREEDY} "
+             f"{probe.launches['tracking'][POSE_LM]} / {probe.launches['tracking'][GREEDY]} times")
     return rec, probe.calls("tracking", "hashing_tracking")
 
 
@@ -1931,6 +2026,9 @@ def phase_map_io(imgs, gt, main):
         fail(f"device map mirror: {stale} of {n_valid} valid rows differ from the store")
     if probe.launches["reloc"][MATRIX] < 1:
         fail(f"relocalization against the loaded map launched {MATRIX} no time")
+    if probe.launches["reloc"][POSE_LM] < 1 or launches[GREEDY] < 1:
+        fail(f"on the loaded map {POSE_LM} was launched {probe.launches['reloc'][POSE_LM]} "
+             f"times by relocalization, {GREEDY} {launches[GREEDY]} times")
     return rec
 
 
@@ -1994,7 +2092,268 @@ def phase_hybrid(imgs, gt, main_rec):
         fail("the 13-state selection did not run")
     if probe.launches["tracking"][BEST2] < 1:
         fail(f"hybrid tracking launched {BEST2} no time")
+    if probe.launches["tracking"][POSE_LM] < 1 or probe.launches["tracking"][GREEDY] < 1:
+        fail(f"hybrid tracking launched {POSE_LM} / {GREEDY} {probe.launches['tracking'][POSE_LM]}"
+             f" / {probe.launches['tracking'][GREEDY]} times")
+    return rec, ("hybrid_d13", sel.args)
+
+
+# ----------------------------------- the pose LM and the greedy selection
+# R, t: the pose LM kernel against its plain version. The two sum H, b and
+# the costs in other orders and solve by Cholesky / LU, so at a cost plateau
+# they can take an LM step differently: measured over all 298 solves of the
+# main path (tools/kernel_vs_plain_torch.py on an H100) up to 7.1e-3 m
+# in t and 8.0e-4 in R on one solve, which the two end one inlier apart
+# (on the kernel's inliers its pose scores the lower robust cost), and
+# below 5.5e-4 m on every other; 1e-2 holds that level with headroom.
+# Inliers and n_inliers are held exactly on the held inputs.
+POSE_TOL = 1e-2
+SELECT_TIE = 0.02      # a swapped pick's plain scores: the float32 logdet near-tie band
+SELECT_OBJ_RTOL = 1e-3  # the selection's logdet where picks differ
+# float32 operations a point, counted from csrc/pose_lm.cu's arithmetic: the
+# Jacobian pass (projection 36, Huber 6, Jacobian 38, normal equations 180)
+# and the candidate's cost pass (42) of a step; the first cost pass and the
+# final gate (78) once
+POSE_FLOPS_STEP, POSE_FLOPS_ONCE = 302, 78
+
+
+def logdet_flops(d):
+    """float32 operations of one candidate's logdet in csrc/greedy_select.cu:
+    the scaling (3 a diagonal entry, 4 a lower entry), the Cholesky and the
+    logs."""
+    chol = sum(2 * j + 5 + (d - 1 - j) * (2 * j + 1) for j in range(d))
+    return 3 * d + 4 * d * (d + 1) // 2 + chol + 2 * d + 2
+
+
+def bound(bytes_, flops):
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def pose_call(kept):
+    """A kept `pose_optimization` call → (contiguous tensors, camera,
+    rounds, iters, damping)."""
+    a, kw = kept
+    tensors = [x.contiguous() for x in a[:7]]
+    rest = dict(zip(("rounds", "iters", "damping"), a[12:]), **kw)
+    return (tensors, [float(x) for x in a[7:12]], rest.get("rounds", 4),
+            rest.get("iters", 10), rest.get("damping", 1e-5))
+
+
+def hold_pose(label, tensors, cam, rounds, iters, damping):
+    got = pose_lm_cuda.pose_lm(*tensors, *cam, rounds, iters, damping)
+    want = pose_opt.pose_optimization_ref(*tensors, *cam, rounds, iters, damping)
+    err = max(float((got[0] - want.R).abs().max()), float((got[1] - want.t).abs().max()))
+    return {"case": label, "n": int(tensors[2].shape[0]), "valid": int(tensors[6].sum()),
+            "rounds": rounds, "iters": iters, "max_abs_err": err,
+            "inliers_equal": bool(torch.equal(got[2], want.inliers)),
+            "n_inliers": int(got[3]), "n_inliers_plain": int(want.n_inliers),
+            "ok": err <= POSE_TOL and bool(torch.equal(got[2], want.inliers))
+                  and int(got[3]) == int(want.n_inliers)}, got, want
+
+
+def time_pose(tensors, cam, rounds, iters, damping):
+    def kernel():
+        return pose_lm_cuda.pose_lm(*tensors, *cam, rounds, iters, damping)
+
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        kernel()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    plain = profiled(lambda: pose_opt.pose_optimization_ref(*tensors, *cam, rounds, iters,
+                                                            damping), repeats=3)
+    n = int(tensors[2].shape[0])
+    steps = rounds * iters
+    rec = {"ms": time_cuda_graph(kernel, 20, 10), "call_ms": time_cuda(kernel, 20, 10),
+           "host_ms": statistics.median(host), "plain_ms": plain["ms"],
+           "plain_device_kernels": plain["device_kernels"],
+           "plain_device_busy_ms": plain["device_busy_ms"]}
+    # inputs read once (R0, t0, 29 bytes a point), outputs written once
+    rec.update(bound(48 + 29 * n + 48 + 5 * n + 8,
+                     n * (POSE_FLOPS_STEP * steps + POSE_FLOPS_ONCE)))
     return rec
+
+
+def select_call(kept):
+    """A kept `lazier_greedy_select` call → its tensors and options."""
+    (obs_mats, valid, n_select, _gen), kw = kept
+    return (obs_mats.contiguous(), valid.contiguous(), int(n_select),
+            kw.get("lazier_factor", 10), kw.get("base_mat"), kw.get("eps", 1e-3),
+            kw.get("batch", 8))
+
+
+def plain_round_scores(M, valid, cur, selected, u_k, inv_l, eps):
+    """The plain version's scores of one round (selection/good_feature.py
+    `lazier_greedy_select_ref`'s round body), for the near-tie check."""
+    from gf_orb_slam2_tpu_torch.selection.observability import logdet_psd
+
+    D = M.shape[-1]
+    cand = valid & ~selected
+    sampled = cand if u_k is None else cand & (u_k < inv_l)
+    sampled = torch.where(sampled.any(), sampled, cand)
+    ld = logdet_psd(cur[None] + M + eps * torch.eye(D, device=M.device)[None], eps)
+    score = torch.where(sampled, ld, float("-inf"))
+    fb = torch.where(cand, torch.einsum("pii->p", M) - 1e12, float("-inf"))
+    return torch.maximum(score, fb), sampled
+
+
+def hold_select(label, M, valid, n_select, lazier, base, eps, batch, u):
+    """The kernel against the plain version on the same uniforms: the same
+    picks in the same order, or where they part, each differing pick of the
+    first round that parts scored within SELECT_TIE of the one it displaced
+    (plain scores), and the selection's logdet within SELECT_OBJ_RTOL."""
+    got = greedy_select_cuda.greedy_select(M, valid, n_select, batch, lazier, eps, base, u)
+    want = good_feature.lazier_greedy_select_ref(M, valid, n_select, None, lazier, base, eps,
+                                                 batch, uniforms=u)
+    B = max(1, min(batch, n_select))
+    inv_l = 1.0 / max(lazier, 1)
+    g, w = got[1].tolist(), want[1].tolist()
+    cur = torch.zeros_like(M[0]) if base is None else base.clone()
+    selected = torch.zeros_like(valid)
+    sampled_total = cand_total = 0
+    first, gap = None, 0.0
+    for k in range(-(-n_select // B)):
+        u_k = None if u is None else u[k]
+        score, sampled = plain_round_scores(M, valid, cur, selected, u_k, inv_l, eps)
+        sampled_total += int(sampled.sum())
+        cand_total += int((valid & ~selected).sum())
+        rows = range(k * B, min((k + 1) * B, n_select))
+        if first is None and any(g[i] != w[i] for i in rows):
+            first = k
+            for i in rows:
+                if g[i] != w[i]:
+                    if min(g[i], w[i]) < 0:
+                        gap = float("inf")
+                    else:
+                        gap = max(gap, abs(float(score[g[i]]) - float(score[w[i]])))
+        picks = [p for p in (w[i] for i in rows) if p >= 0]
+        if picks:
+            selected[picks] = True
+            cur = cur + M[picks].sum(0)
+    obj_got = float(good_feature.selection_logdet(M, got[0], base, eps))
+    obj_want = float(good_feature.selection_logdet(M, want[0], base, eps))
+    same = g == w and bool(torch.equal(got[0], want[0]))
+    rec = {"case": label, "P": int(M.shape[0]), "D": int(M.shape[-1]),
+           "candidates": int(valid.sum()), "n_select": n_select, "lazier_factor": lazier,
+           "same": same, "picks_differing": sum(a != b for a, b in zip(g, w)),
+           "first_round_parting": first, "tie_gap": gap,
+           "objective": obj_got, "objective_plain": obj_want,
+           "max_abs_err": abs(obj_got - obj_want),
+           "sampled_total": sampled_total, "candidates_total": cand_total}
+    rec["ok"] = same or (gap <= SELECT_TIE
+                         and abs(obj_got - obj_want) <= SELECT_OBJ_RTOL * abs(obj_want))
+    return rec
+
+
+def time_select(M, valid, n_select, lazier, base, eps, batch, u, hold):
+    def kernel():
+        return greedy_select_cuda.greedy_select(M, valid, n_select, batch, lazier, eps, base, u)
+
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        kernel()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    plain = profiled(lambda: good_feature.lazier_greedy_select_ref(
+        M, valid, n_select, None, lazier, base, eps, batch, uniforms=u), repeats=3)
+    P, D = M.shape[0], M.shape[-1]
+    B = max(1, min(batch, n_select))
+    rounds = -(-n_select // B)
+    rec = {"ms": time_cuda_graph(kernel, 20, 5), "call_ms": time_cuda(kernel, 20, 5),
+           "host_ms": statistics.median(host), "plain_ms": plain["ms"],
+           "plain_device_kernels": plain["device_kernels"],
+           "plain_device_busy_ms": plain["device_busy_ms"]}
+    # obs_mats, valid, base and the uniforms read once; selected and order
+    # written once; the logdets of this run's sampled candidates and a trace
+    # and a compare for every candidate of every round
+    rec.update(bound(P * D * D * 4 + P + D * D * 4 + (0 if u is None else u.numel() * 4)
+                     + P + rounds * B * 8,
+                     hold["sampled_total"] * logdet_flops(D) + hold["candidates_total"] * (D + 1)))
+    return rec
+
+
+def pose_edge_cases(tensors, cam):
+    """No valid point (the pose bit for bit), every point behind the camera
+    (no NaN), a non-finite point (every step rejected by both)."""
+    R0, t0, X, uv, ur, inv2, valid = tensors
+    out = []
+    for label, case in (("no_valid", [R0, t0, X, uv, ur, inv2, torch.zeros_like(valid)]),
+                        ("behind_camera", [R0, t0, -X, uv, ur, inv2, torch.ones_like(valid)]),
+                        ("non_finite_point", [R0, t0, torch.where(
+                            torch.arange(X.shape[0], device=X.device)[:, None] == 0,
+                            float("nan"), X).contiguous(), uv, ur, inv2, valid])):
+        rec, got, _ = hold_pose(label, case, cam, 3, 8, 1e-5)
+        finite = all(bool(torch.isfinite(x).all()) for x in got[:2])
+        if label == "no_valid":
+            rec["ok"] &= bool(torch.equal(got[0], R0) and torch.equal(got[1], t0))
+        if label == "behind_camera":
+            rec["ok"] &= int(got[3]) == 0
+        rec["ok"] &= finite
+        out.append(rec)
+    return out
+
+
+def phase_lm_select(pose_inputs, select_inputs):
+    """Kernels 2 (`pose_lm`) and 3 (`greedy_select`) on the card against
+    their plain PyTorch versions, on the inputs the paths gave them: the
+    main path's last motion-model and local-map solves (3 × 8) and the
+    accepted relocalization's LM polish (4 × 10), plus the edge cases (R
+    and t within POSE_TOL, inliers and n_inliers exact); the
+    main path's last selection (D = 7) and the hybrid phase's (D = 13), each
+    on the same uniforms for both, as drawn and exact greedy. Device time by
+    CUDA-graph replay, host ms a call, the plain version's ms and device
+    kernels a call, the bound from this run's inputs."""
+    pose_cases, pose_shapes = [], []
+    for label, kept in pose_inputs:
+        tensors, cam, rounds, iters, damping = pose_call(kept)
+        rec, _, _ = hold_pose(label, tensors, cam, rounds, iters, damping)
+        pose_cases.append(rec)
+        pose_shapes.append(dict(rec, **time_pose(tensors, cam, rounds, iters, damping)))
+        if label == "motion_model":
+            pose_cases += pose_edge_cases(tensors, cam)
+    sel_cases, sel_shapes = [], []
+    gen = torch.Generator(device=DEVICE)
+    for label, kept in select_inputs:
+        M, valid, n_select, lazier, base, eps, batch = select_call(kept)
+        gen.manual_seed(13)
+        u = good_feature.lazier_uniforms(M, n_select, gen, lazier, batch)
+        for lz, uu in ((lazier, u), (1, None)):
+            rec = hold_select(f"{label}_lazier{lz}", M, valid, n_select, lz, base, eps, batch, uu)
+            sel_cases.append(rec)
+            if lz == lazier:
+                sel_shapes.append(dict(rec, **time_select(M, valid, n_select, lz, base, eps,
+                                                          batch, uu, rec)))
+        rec = hold_select(f"{label}_no_base", M, valid, n_select, 1, None, eps, batch, None)
+        sel_cases.append(rec)
+    torch.cuda.synchronize()
+    records = {}
+    for name, cases, shapes, tol in ((POSE_LM, pose_cases, pose_shapes,
+                                      {"R_t_abs": POSE_TOL, "inliers": "exact"}),
+                                     (GREEDY, sel_cases, sel_shapes,
+                                      {"tie_gap": SELECT_TIE, "objective_rtol": SELECT_OBJ_RTOL})):
+        # the headline shape: the main path's local-map solve, its D = 7 selection
+        head = next(s for s in shapes if s["case"] in ("local_map", "main_path_d7_lazier10"))
+        records[name] = {
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "ok": all(c["ok"] for c in cases), "cases": len(cases),
+            "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": tol,
+            "ms": head["ms"], "call_ms": head["call_ms"], "host_ms": head["host_ms"],
+            "plain_ms": head["plain_ms"], "plain_device_kernels": head["plain_device_kernels"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shapes": shapes, "checked": cases}
+    emit({"phase": "lm_select", "pose_lm": records[POSE_LM], "greedy_select": records[GREEDY]})
+    for name, rec in records.items():
+        bad = [c for c in rec["checked"] if not c["ok"]]
+        if bad:
+            fail(f"{name} disagrees with its plain version: {bad}")
+    # no PyTorch call computes a masked Huber LM or a greedy logdet selection
+    return records
 
 
 def phase_reloc_matrix(captured):
@@ -2305,7 +2664,7 @@ def phase_cli():
         fail(f"cli: ATE {metrics.get('ate_rmse')} (bound {CLI_ATE_BOUND_M} m)")
     if any(r["frames"] != CLI_FRAMES for r in rows):
         fail(f"cli: batch sweep rows {rows}")
-    if not all(launches[k] > 0 for k in (MATRIX, BEST2)):
+    if not all(launches[k] > 0 for k in (MATRIX, BEST2, POSE_LM, GREEDY)):
         fail(f"cli: the batch sweep launched {launches}")
     return rec
 
@@ -2320,20 +2679,22 @@ def main():
     # the headline run first: its process has run nothing else yet
     bench = phase_bench(tour, tour_gt, smi)
     imgs, gt = tour[:N_FRAMES], tour_gt[:N_FRAMES]
-    run, captured, ba_problem, main = phase_main_path(imgs, gt, render_s)
+    run, captured, ba_problem, main, lm_inputs = phase_main_path(imgs, gt, render_s)
     pipelined = phase_pipelined(imgs[:PIPELINED_FRAMES], gt[:PIPELINED_FRAMES],
                                 run["ate_rmse_m"])
     t0 = time.perf_counter()
     circuit = render_loop()
     circuit_render_s = time.perf_counter() - t0
     loop, loop_calls, pose_graph, gba_window, sim3 = phase_loop(circuit, circuit_render_s)
-    reloc, reloc_matrix = phase_reloc(circuit)
+    reloc, reloc_matrix, polish = phase_reloc(circuit)
     mono, mono_calls = phase_mono(circuit)
     rgbd, rgbd_calls = phase_rgbd(imgs[:RGBD_FRAMES], gt[:RGBD_FRAMES], run["ate_rmse_m"])
     hashing, hashing_calls = phase_hashing(circuit, loop["ate_loop_off_m"])
     map_io = phase_map_io(imgs, gt, main)
     del main
-    hybrid = phase_hybrid(imgs[:HYBRID_FRAMES], gt[:HYBRID_FRAMES], run)
+    hybrid, hybrid_select = phase_hybrid(imgs[:HYBRID_FRAMES], gt[:HYBRID_FRAMES], run)
+    kernels.update(phase_lm_select(lm_inputs["pose"] + [("reloc_polish", polish)],
+                                   lm_inputs["select"] + [hybrid_select]))
     path_calls = phase_path_masks(captured + loop_calls + mono_calls + rgbd_calls + hashing_calls)
     matrix_calls = phase_reloc_matrix(reloc_matrix)
     phase_local_ba(ba_problem)

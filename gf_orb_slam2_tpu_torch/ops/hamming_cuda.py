@@ -24,130 +24,27 @@ arithmetic → sum; composite-key minimum), used for CPU tensors and to hold
 the kernels against on the card. There is no fallback between them: a CUDA
 tensor launches the kernel or raises.
 
-The sources are built at first use with `nvcc` for sm_90a (one compiler
-process per source, started together, then one link) into
-`<package>/_build/` as a shared library with a plain C interface and loaded
-with ctypes — importing this module needs neither nvcc nor a GPU.
+The sources are built and loaded at first use by `ops/cuda_lib.py`, which
+also keeps the launch counts (re-exported here) — importing this module
+needs neither nvcc nor a GPU.
 
 Descriptors are int32 tensors carrying the 256 bits as 8 words (torch has no
 shifts on uint32); the kernels treat the words as unsigned.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG_DIR, "csrc", "hamming.cu"),
-           os.path.join(_PKG_DIR, "csrc", "hamming_best2.cu"))
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+from gf_orb_slam2_tpu_torch.ops import cuda_lib
+from gf_orb_slam2_tpu_torch.ops.cuda_lib import (  # noqa: F401  (public names)
+    build, launch_counts, launch_counts_by_thread, launch_empty_kernel, load,
+    reset_launch_counts, thread_launch_counts,
+)
 
 MAX_DIST = 256
 MAX_COLUMNS = 1 << 22  # the best-2 key d*M + column must fit 32 bits
 
-# launches of each CUDA kernel by this process (the plain versions never
-# count), in all and by the name of the launching thread (the pipelined
-# System's mapping worker is the thread named "mapping")
-launch_counts = {"hamming_distance_matrix": 0, "hamming_masked_best2": 0}
-launch_counts_by_thread = {}
-_count_lock = threading.Lock()
-
-_lib = None
 _ROW_CHUNK = 256  # rows per step of the plain version (bounds its scratch)
-
-
-def reset_launch_counts():
-    with _count_lock:
-        for k in launch_counts:
-            launch_counts[k] = 0
-        launch_counts_by_thread.clear()
-
-
-def thread_launch_counts(thread_name: str) -> dict:
-    """Launches of each kernel by the threads of that name since the last
-    reset."""
-    with _count_lock:
-        return dict(launch_counts_by_thread.get(thread_name, dict.fromkeys(launch_counts, 0)))
-
-
-def _find_nvcc() -> str:
-    cands = []
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(env):
-            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
-    cands.append(shutil.which("nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if c and os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "nvcc not found (looked at $CUDA_HOME/bin, $PATH, /usr/local/cuda/bin): "
-        "the Hamming kernels are compiled from csrc/*.cu at first use")
-
-
-def _run_all(cmds, verbose):
-    """Start every command at once, wait for all, raise on the first failure."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    for cmd, proc, out in zip(cmds, procs, outs):
-        if verbose and out:
-            print(out, flush=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into one shared library in the build directory
-    (skipped when a library built from the same sources and flags is already
-    there). Returns the library path. Raises on any compiler failure."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    tag = h.hexdigest()[:12]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"libgfslam_hamming_{tag}.so")
-    if not os.path.exists(lib_path):
-        nvcc = _find_nvcc()
-        stem = f"{lib_path}.{os.getpid()}"
-        objs = [f"{stem}.{i}.o" for i in range(len(SOURCES))]
-        extra = ["-Xptxas", "-v"] if verbose else []
-        try:
-            _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, src]
-                      for src, obj in zip(SOURCES, objs)], verbose)
-            _run_all([[nvcc, "-shared", "-o", f"{stem}.tmp", *objs]], verbose)
-            os.replace(f"{stem}.tmp", lib_path)
-        finally:
-            for obj in objs:
-                if os.path.exists(obj):
-                    os.remove(obj)
-    return lib_path
-
-
-def load(verbose: bool = False):
-    """Build (if needed) and load the kernel library; idempotent."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(build(verbose))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hamming_distance_matrix_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-    lib.hamming_masked_best2_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
-    lib.empty_kernel_launch.argtypes = [ptr]
-    for fn in (lib.hamming_distance_matrix_launch, lib.hamming_masked_best2_launch,
-               lib.empty_kernel_launch):
-        fn.restype = i32
-    _lib = lib
-    return _lib
 
 
 def _check(name, d):
@@ -167,28 +64,6 @@ def _check_on_card(fname, da, db):
         raise ValueError("inputs must be contiguous")
 
 
-def _launch(name, entry, device, *args):
-    """Enqueue one kernel on `device`'s current stream and count it."""
-    lib = load()
-    with torch.cuda.device(device):
-        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
-    with _count_lock:
-        launch_counts[name] += 1
-        mine = launch_counts_by_thread.setdefault(
-            threading.current_thread().name, dict.fromkeys(launch_counts, 0))
-        mine[name] += 1
-
-
-def launch_empty_kernel():
-    """Enqueue a kernel that does nothing on the current stream: its time is
-    the floor under any kernel timed the same way. Counts as no launch."""
-    err = load().empty_kernel_launch(torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
-
-
 def hamming_distance_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """da [N,8], db [M,8] 32-bit words on one CUDA device → [N,M] int32.
 
@@ -203,7 +78,7 @@ def hamming_distance_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
         return out
     if da.data_ptr() % 16 or db.data_ptr() % 16:
         raise ValueError("inputs must be 16-byte aligned")
-    _launch("hamming_distance_matrix", "hamming_distance_matrix_launch", da.device,
+    cuda_lib.launch("hamming_distance_matrix", "hamming_distance_matrix_launch", da.device,
             da.data_ptr(), db.data_ptr(), out.data_ptr(), n, m)
     return out
 
@@ -243,7 +118,7 @@ def hamming_masked_best2(da: torch.Tensor, db: torch.Tensor, mask: torch.Tensor)
         return best_idx, best, second
     if da.data_ptr() % 16 or db.data_ptr() % 16:
         raise ValueError("inputs must be 16-byte aligned")
-    _launch("hamming_masked_best2", "hamming_masked_best2_launch", da.device,
+    cuda_lib.launch("hamming_masked_best2", "hamming_masked_best2_launch", da.device,
             da.data_ptr(), db.data_ptr(), mask.data_ptr(),
             best_idx.data_ptr(), best.data_ptr(), second.data_ptr(), n, m)
     return best_idx, best, second

@@ -7,9 +7,13 @@ Huber kernel).
 
 Batched analytic Jacobians over ALL observations at once, Levenberg-Marquardt
 on the 6-dof left-multiplicative se(3) update with step acceptance, fixed
-iteration counts. Every decision inside the loop is a tensor (`torch.where`):
-the loop never reads a value back to the host, so a solve enqueues without a
-single synchronization.
+iteration counts. The JAX package runs the solve as one XLA program (a
+`lax.scan`, gf_orb_slam2_tpu/optim/pose_opt.py:81); here CUDA tensors go to
+one hand-written kernel launch for the whole solve (csrc/pose_lm.cu through
+ops/pose_lm_cuda.py) and CPU tensors to `pose_optimization_ref`, the plain
+PyTorch version, whose every decision inside the loop is a tensor
+(`torch.where`). Neither reads a value back to the host, so a solve enqueues
+without a single synchronization.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from gf_orb_slam2_tpu_torch.geometry import lie
+from gf_orb_slam2_tpu_torch.ops.pose_lm_cuda import pose_lm
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -87,7 +92,23 @@ def pose_optimization(
     fx, fy, cx, cy, bf,
     rounds: int = 4, iters: int = 10, damping: float = 1e-5,
 ):
-    """Optimize Tcw from 3D-2D(+disparity) correspondences.
+    """Optimize Tcw from 3D-2D(+disparity) correspondences (arguments and
+    result: `pose_optimization_ref`). CUDA tensors launch the pose LM kernel
+    once (float32 only: another dtype raises); CPU tensors run the plain
+    version."""
+    if Xw.is_cuda:
+        args = [x.contiguous() for x in (R0, t0, Xw, uv, u_right, inv_sigma2, valid)]
+        return PoseOptResult(*pose_lm(*args, fx, fy, cx, cy, bf, rounds, iters, damping))
+    return pose_optimization_ref(R0, t0, Xw, uv, u_right, inv_sigma2, valid,
+                                 fx, fy, cx, cy, bf, rounds, iters, damping)
+
+
+def pose_optimization_ref(
+    R0, t0, Xw, uv, u_right, inv_sigma2, valid,
+    fx, fy, cx, cy, bf,
+    rounds: int = 4, iters: int = 10, damping: float = 1e-5,
+):
+    """Plain PyTorch version of the pose LM (any device). Optimize Tcw from 3D-2D(+disparity) correspondences.
 
     Xw: [N,3] world points; uv: [N,2] observed pixels; u_right: [N] observed
     right-cam u (<0 ⇒ monocular observation); inv_sigma2: [N] per-octave

@@ -17,22 +17,67 @@ Reference mechanics → this design:
   round count (SURVEY.md §7.3).
 
 The greedy round loop is sequential by nature (each pick conditions the next
-score); it is a Python loop whose every decision stays a tensor, so no round
-waits for the host.
+score). The JAX package runs it as one XLA program (a `lax.scan`,
+gf_orb_slam2_tpu/selection/good_feature.py:32); here CUDA tensors go to one
+hand-written kernel launch for all rounds (csrc/greedy_select.cu through
+ops/greedy_select_cuda.py) and CPU tensors to `lazier_greedy_select_ref`,
+the plain PyTorch version: a Python loop whose every decision stays a
+tensor. Neither waits for the host. Both take the lazier sample's uniforms
+from `lazier_uniforms`, so a seeded generator's stream is consumed the same
+way on either path.
 """
 from __future__ import annotations
 
 import torch
 
+from gf_orb_slam2_tpu_torch.ops.greedy_select_cuda import greedy_select
 from gf_orb_slam2_tpu_torch.ops.select import topk_stable
 from gf_orb_slam2_tpu_torch.selection.observability import logdet_psd
+
+
+def _rounds(n_select: int, batch: int):
+    B = max(1, min(batch, n_select))
+    return B, -(-n_select // B)
+
+
+def lazier_uniforms(obs_mats, n_select: int, generator, lazier_factor: int = 10,
+                    batch: int = 8):
+    """The [rounds,P] U(0,1) draws of the lazier sample, taken from
+    `generator` on obs_mats' device and dtype; None for exact greedy
+    (lazier_factor <= 1), which draws nothing."""
+    if lazier_factor <= 1:
+        return None
+    _, rounds = _rounds(n_select, batch)
+    return torch.rand((rounds, obs_mats.shape[0]), generator=generator,
+                      device=obs_mats.device, dtype=obs_mats.dtype)
 
 
 def lazier_greedy_select(
     obs_mats, valid, n_select: int, generator=None, lazier_factor: int = 10,
     base_mat=None, eps: float = 1e-3, batch: int = 8, uniforms=None,
 ):
-    """Select `n_select` landmarks maximizing logdet(Σ selected ObsMat).
+    """Select `n_select` landmarks maximizing logdet(Σ selected ObsMat)
+    (arguments and result: `lazier_greedy_select_ref`). CUDA tensors launch
+    the selection kernel once (float32, D = 7 or 13: anything else raises);
+    CPU tensors run the plain version. The uniforms are drawn here for both,
+    by `lazier_uniforms`."""
+    if uniforms is None:
+        uniforms = lazier_uniforms(obs_mats, n_select, generator, lazier_factor, batch)
+    if obs_mats.is_cuda:
+        return greedy_select(
+            obs_mats.contiguous(), valid.contiguous(), n_select, batch, lazier_factor, eps,
+            None if base_mat is None else base_mat.contiguous(),
+            None if uniforms is None or lazier_factor <= 1 else uniforms.contiguous())
+    return lazier_greedy_select_ref(obs_mats, valid, n_select, generator, lazier_factor,
+                                    base_mat, eps, batch, uniforms)
+
+
+def lazier_greedy_select_ref(
+    obs_mats, valid, n_select: int, generator=None, lazier_factor: int = 10,
+    base_mat=None, eps: float = 1e-3, batch: int = 8, uniforms=None,
+):
+    """Plain PyTorch version of the selection (any device): select
+    `n_select` landmarks maximizing logdet(Σ selected ObsMat).
 
     obs_mats: [P,D,D] per-landmark info matrices; valid: [P] candidate mask;
     base_mat: optional [D,D] prior information (current matched set);
@@ -52,13 +97,17 @@ def lazier_greedy_select(
     if base_mat is None:
         base_mat = torch.zeros((D, D), dtype=dt, device=dev)
     eye = torch.eye(D, dtype=dt, device=dev)
-    B = max(1, min(batch, n_select))
-    rounds = -(-n_select // B)
+    B, rounds = _rounds(n_select, batch)
     inv_l = 1.0 / max(lazier_factor, 1)
-    if uniforms is None and inv_l < 1.0:
-        uniforms = torch.rand((rounds, P), generator=generator, device=dev, dtype=dt)
+    if uniforms is None:
+        uniforms = lazier_uniforms(obs_mats, n_select, generator, lazier_factor, batch)
 
-    traces = torch.einsum("pii->p", obs_mats)  # cheap fallback score tier
+    # cheap fallback score tier; this sum and the one into `cur` run left to
+    # right, as the selection kernel (csrc/greedy_select.cu) runs them
+    diag = torch.diagonal(obs_mats, dim1=-2, dim2=-1)
+    traces = diag[:, 0]
+    for i in range(1, D):
+        traces = traces + diag[:, i]
     # per-round slot activity: exactly n_select picks across all rounds
     slot_active = (torch.arange(rounds * B, device=dev) < n_select).reshape(rounds, B)
     neg_inf = float("-inf")
@@ -84,7 +133,11 @@ def lazier_greedy_select(
         vals, pick = topk_stable(torch.maximum(score, fb), B)
         ok = torch.isfinite(vals) & slot_active[k]
         selected = selected.scatter(0, pick, selected[pick] | ok)  # picks are distinct
-        cur = cur + torch.einsum("b,bij->ij", ok.to(dt), obs_mats[pick])
+        picked = ok.to(dt)[:, None, None] * obs_mats[pick]
+        add = picked[0]
+        for b in range(1, B):
+            add = add + picked[b]
+        cur = cur + add
         order.append(torch.where(ok, pick, -1))
     return selected, torch.cat(order)[:n_select]
 

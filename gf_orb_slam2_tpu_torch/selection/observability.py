@@ -175,16 +175,20 @@ def logdet_psd(M, eps=1e-3):
     (Observability.h:85); in f32 the raw determinant underflows/overflows for
     info matrices whose diagonal spans ~1e5..1e8, so we scale-normalize by
     the diagonal first: logdet(M) = logdet(D^-½ M D^-½) + Σ log dᵢ.
-    Small static D (≤16) uses the unrolled Cholesky; larger falls back to
-    slogdet.
+    Small static D (≤16) uses the unrolled Cholesky and sums the log-scales
+    left to right, every operation rounded on its own: the order the
+    selection kernel (csrc/greedy_select.cu) takes, so its scores equal
+    these on the card bit for bit; larger D falls back to slogdet.
     """
     d = M.shape[-1]
     diag = torch.diagonal(M, dim1=-2, dim2=-1)
     s = torch.sqrt(torch.clamp(diag, min=eps))
     Mn = M / (s[..., :, None] * s[..., None, :])
     Mn = Mn + 1e-5 * torch.eye(d, dtype=M.dtype, device=M.device)
-    if d <= 16:
-        ld = _chol_logdet_unrolled(Mn)
-    else:
-        ld = torch.linalg.slogdet(Mn)[1]
-    return ld + 2.0 * torch.sum(torch.log(s), -1)
+    if d > 16:
+        return torch.linalg.slogdet(Mn)[1] + 2.0 * torch.sum(torch.log(s), -1)
+    log_s = torch.log(s)
+    total = log_s[..., 0]
+    for i in range(1, d):
+        total = total + log_s[..., i]
+    return _chol_logdet_unrolled(Mn) + 2.0 * total

@@ -731,8 +731,8 @@ class System:
     def wait_prewarm(self, timeout=None):
         """Finish the device's set-up before a timed run, as the JAX
         package's `wait_prewarm` joins its compile threads: on CUDA, build
-        (nvcc) or load the Hamming kernels, which the first frame would
-        otherwise pay. The rest of the set-up already ran at construction
+        (nvcc) or load the CUDA kernels (all of `csrc/*.cu`, one library),
+        which the first frame would otherwise pay. The rest of the set-up already ran at construction
         (`LoopCloser.warm_up`, whose first launch builds the kernels when
         loop closing is on; the hash's host library). Nothing of it runs in
         the background, so this returns when the build is done and

@@ -139,8 +139,10 @@ def test_cpu_path_never_counts_a_launch():
     a, b = _t(_desc(rng, 8)), _t(_desc(rng, 8))
     tham.distance_matrix(a, b)
     tham.distance_best2(a, b, torch.ones((8, 8), dtype=torch.bool))
+    # one counter for every kernel of the port (ops/cuda_lib.py)
     assert hamming_cuda.launch_counts == {"hamming_distance_matrix": 0,
-                                          "hamming_masked_best2": 0}
+                                          "hamming_masked_best2": 0,
+                                          "pose_lm": 0, "greedy_select": 0}
 
 
 # ---- the fused form: best two matches per row without the matrix
