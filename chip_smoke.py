@@ -105,9 +105,11 @@ local-map solves and the accepted relocalization's LM polish (R and t within
 with headroom —, inliers exact; no valid point, every point behind the camera, a
 non-finite point), the main path's last selection (D = 7) and the hybrid
 phase's (D = 13) on the same uniforms (the same picks, or near-ties within
-0.02 and the objective within 1e-3). Every path is gated on its own kernels
-having launched: the pose LM on every tracking path and once per solved
-relocalization candidate, the selection on every good-feature path.
+0.02 and the objective within 1e-3), and a synthetic pool at the selection
+kernel's cap on P (16,384 slots) at D = 7 and 13. Every path is gated on
+its own kernels having launched: the pose LM on every tracking path and once
+per solved relocalization candidate, the selection on every good-feature
+path.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code. The last line is {"ok": true, "device": {...}} and is
@@ -758,6 +760,7 @@ def phase_main_path(imgs, gt, render_s):
     rec["selection_last_frame"] = selection_cost(sel)
     rec["peak_device_mib"] = torch.cuda.max_memory_allocated() / 2**20
     emit(rec)
+    print(f"main_path ATE {float(ate)!r} m (gate {ATE_BOUND_M} m)", flush=True)
     slam.shutdown()
 
     if stats[0].state != "OK" or stats[0].n_features < 500:
@@ -790,7 +793,7 @@ def phase_main_path(imgs, gt, render_s):
     if not (np.isfinite(est).all() and est.shape == (N_FRAMES, 3)):
         fail("trajectory is not finite")
     if not ate < ATE_BOUND_M:
-        fail(f"ATE {ate:.4f} m >= {ATE_BOUND_M} m")
+        fail(f"ATE {ate!r} m >= {ATE_BOUND_M} m")
     if cap.ba_problem is None:
         fail("no local BA problem was assembled")
     if len(solves.calls) != 2 or sel.args is None:
@@ -2278,6 +2281,17 @@ def time_select(M, valid, n_select, lazier, base, eps, batch, u, hold):
     return rec
 
 
+def cap_problem(P, D):
+    """P random information-like matrices (PSD, condition ~10, scales 0.5-2),
+    85 % of them valid, and the first five's sum as the base, from a seed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(15 + D)
+    A = torch.randn((P, D, D), generator=gen, device=DEVICE)
+    M = A @ A.transpose(1, 2) / D + torch.eye(D, device=DEVICE)
+    M = M * (0.5 + 1.5 * torch.rand((P, 1, 1), generator=gen, device=DEVICE))
+    valid = torch.rand(P, generator=gen, device=DEVICE) < 0.85
+    return M.contiguous(), valid, M[:5].sum(0).contiguous()
+
+
 def pose_edge_cases(tensors, cam):
     """No valid point (the pose bit for bit), every point behind the camera
     (no NaN), a non-finite point (every step rejected by both)."""
@@ -2331,6 +2345,15 @@ def phase_lm_select(pose_inputs, select_inputs):
                                                           batch, uu, rec)))
         rec = hold_select(f"{label}_no_base", M, valid, n_select, 1, None, eps, batch, None)
         sel_cases.append(rec)
+    # the kernel's cap on P (4x the largest pool any path passes), both widths
+    P = greedy_select_cuda.MAX_SLOTS
+    for D in greedy_select_cuda.DIMS:
+        M, valid, base = cap_problem(P, D)
+        gen.manual_seed(14)
+        u = good_feature.lazier_uniforms(M, 160, gen, 10)
+        rec = hold_select(f"cap_p{P}_d{D}_lazier10", M, valid, 160, 10, base, 1e-3, 8, u)
+        sel_cases.append(rec)
+        sel_shapes.append(dict(rec, **time_select(M, valid, 160, 10, base, 1e-3, 8, u, rec)))
     torch.cuda.synchronize()
     records = {}
     for name, cases, shapes, tol in ((POSE_LM, pose_cases, pose_shapes,

@@ -16,44 +16,70 @@
 // every observation at the current pose; chi2 and the Huber weight; at a
 // round boundary the chi2 re-gate, the cost reset and lambda <- 1e-3; the
 // normal equations (21 upper entries of H, 6 of b) summed over the block;
-// (H + lambda*diag(damping + diag H)) xi = -b by Cholesky on one thread (SPD
-// for lambda >= 1e-6; a pivot that is not positive makes the step NaN, which
-// the finite guard rejects, as the plain version's solve on a singular
-// system); se3_exp and the left compose; the candidate's robust cost summed
-// over the block; the accept test with the finite guard; lambda halved or
-// quadrupled within [1e-6, 1e6]. The last pass writes the final chi2 gate,
-// chi2 and the pose; n_inliers is summed on the device. Built without FMA
-// contraction (cuda_lib's -fmad=false): every product and sum is rounded
-// on its own, as the plain version's elementwise launches round them; its
-// matrix products and sums over the points (cuBLAS, torch's reductions) and
-// its LU solve keep orders of their own, so the two agree to float32
-// rounding, not bit for bit.
+// (H + lambda*diag(damping + diag H)) xi = -b by Cholesky (SPD for lambda >=
+// 1e-6; a pivot that is not positive makes the step NaN, which the finite
+// guard rejects, as the plain version's solve on a singular system);
+// se3_exp and the left compose; the candidate's robust cost summed over the
+// block; the accept test with the finite guard; lambda halved or quadrupled
+// within [1e-6, 1e6]. The last pass writes the final chi2 gate, chi2 and the
+// pose; n_inliers is summed on the device. Built without FMA contraction
+// (cuda_lib's -fmad=false): every product and sum is rounded on its own, as
+// the plain version's elementwise launches round them; its matrix products
+// and sums over the points (cuBLAS, torch's reductions) and its LU solve
+// keep orders of their own, so the two agree to float32 rounding, not bit
+// for bit.
 //
 // What bounds it on this card: latency, not bytes or operations. The inputs
 // are ~37 KB at N = 1024 (0.011 us of HBM) and a 24-step solve does ~7 MFLOP
 // (0.1 us of the fp32 peak), but every step is a chain of dependent phases:
-// two passes over the points, two block-wide sums, a serial 6x6 solve and
-// exponential on one thread, and five barriers. The design keeps everything
-// of that chain on chip: R, t, lambda and the cost in shared memory, the
-// inputs re-read from L1 (they fit), the running inlier mask kept in the
-// `inliers` output itself (each point is owned by one thread from start to
-// end), nothing read back to the host and nothing allocated.
+// a pass over the points (issue-bound on the one SM's four schedulers), a
+// block-wide sum, the 6x6 solve and exponential (~5,000 cycles of dependent
+// square roots, divisions and sin/cos), and the barriers between them.
 //
-// What the one-block design gives up: a solve uses one SM of 132, so the
-// card is idle beside it unless other streams fill it; several solves (the
-// relocalization's candidates) would want one block each in one launch, and
-// a longer N would want the points split over several blocks with a second
-// pass for the sums. Measured times on an H100 are kept in PERF.md.
+// The design (it replaces the first version's one-block design, whose
+// every step made two passes over the points -- H and b at the current
+// pose, then the candidate's cost --, two block sums, a serial solve on one
+// thread and five barriers): the same arithmetic, every value computed by the same
+// operations in the same order (point i on thread i mod 256 of 256 point
+// threads, each thread's sums in point order, the block sums' xor shuffles
+// then the warps in order), scheduled so that
+//  1. a step makes ONE pass: the candidate's pass sums its robust cost AND
+//     its H and b (the same mask, Huber weight and Jacobian code). Accepted,
+//     those are the next step's normal equations; rejected, the pose and the
+//     mask are unchanged, so the next step solves the kept H and b again
+//     with the new lambda. Only the first step and a round's re-gate step
+//     make a pass at the accepted pose of their own: 28 passes and block
+//     sums for 3 x 8 instead of 50;
+//  2. a ninth warp, the solver, takes the block sums' last stage, the accept
+//     test and every solve. While the point warps make the candidate's pass
+//     it solves the next step as a rejection would leave it (the same H, b
+//     and pose, lambda x 4), so a rejected step costs no solve after its
+//     pass; an accepted one solves from the candidate's sums. The Cholesky
+//     factor and the forward substitution run over lanes 0-5 (lane r owns
+//     row r; each value the serial loop's operations in its order): two
+//     barriers a step instead of five;
+//  3. the inputs (28 bytes a point) and the two masks are held in registers
+//     for N <= 1024, loaded once (4 points a thread); a larger N reads them
+//     from memory on every pass, as the first version did.
+// What it still gives up: a solve uses one SM of 132, so the card is idle
+// beside it unless other streams fill it; the pass could be split over the
+// SMs of a cluster (each thread's four points' terms added in order by one
+// thread, through DSMEM), worth at most the pass's time beyond the
+// speculative solve's beside it; not built (PERF.md);
+// several solves (the relocalization's candidates) would want one block
+// each in one launch. Measured times on an H100 are kept in PERF.md.
 // Any N >= 0; float32 only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int THREADS = 256;          // the point threads: point i on thread i mod 256
+constexpr int WARPS = THREADS / 32;   // the point warps
+constexpr int BLOCK = THREADS + 32;   // and the solver warp
+constexpr int STAGED = 4;         // points a thread holds in registers: N <= 1024
 constexpr int NH = 21;            // upper triangle of the 6x6 H
-constexpr int NACC = NH + 6 + 1;  // H, b, the re-gated cost
+constexpr int NACC = NH + 6 + 1;  // H, b, the robust cost
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float CHI2_MONO = 5.991f, CHI2_STEREO = 7.815f;
 constexpr float HUBER_MONO = 2.4477f, HUBER_STEREO = 2.7955f;  // sqrt of the above
@@ -77,6 +103,24 @@ struct Args {
     float* chi2;
 };
 
+// One observation's inputs.
+struct Obs {
+    float X0, X1, X2, u, v, ur, inv2;
+};
+
+__device__ __forceinline__ Obs load_obs(const Args& a, int i) {
+    return {a.X[3 * i], a.X[3 * i + 1], a.X[3 * i + 2], a.uv[2 * i], a.uv[2 * i + 1], a.ur[i],
+            a.inv2[i]};
+}
+
+// This thread's points (i = tid + THREADS*k) in registers, with the valid
+// and inlier masks as bits k; PPT = 0 keeps nothing (read from memory).
+template <int PPT>
+struct Points {
+    Obs o[PPT > 0 ? PPT : 1];
+    unsigned valid, inl;
+};
+
 // One observation projected at a pose: the camera point (z not clamped),
 // the clamped inverse depth, the residuals (third = stereo, 0 for mono) and
 // chi2.
@@ -85,23 +129,22 @@ struct Proj {
     bool stereo;
 };
 
-__device__ __forceinline__ Proj project(const float* R, const float* t, const Args& a, int i) {
+__device__ __forceinline__ Proj project(const float* R, const float* t, const Args& a,
+                                        const Obs& o) {
     Proj p;
-    const float X0 = a.X[3 * i], X1 = a.X[3 * i + 1], X2 = a.X[3 * i + 2];
-    p.x = X0 * R[0] + X1 * R[1] + X2 * R[2] + t[0];
-    p.y = X0 * R[3] + X1 * R[4] + X2 * R[5] + t[1];
-    p.z = X0 * R[6] + X1 * R[7] + X2 * R[8] + t[2];
+    p.x = o.X0 * R[0] + o.X1 * R[1] + o.X2 * R[2] + t[0];
+    p.y = o.X0 * R[3] + o.X1 * R[4] + o.X2 * R[5] + t[1];
+    p.z = o.X0 * R[6] + o.X1 * R[7] + o.X2 * R[8] + t[2];
     const float zc = p.z < 1e-6f ? 1e-6f : p.z;
     p.iz = 1.0f / zc;
     const float u = a.fx * p.x * p.iz + a.cx;
     const float v = a.fy * p.y * p.iz + a.cy;
-    const float ur = a.ur[i];
-    p.stereo = ur >= 0.0f;
-    p.r0 = u - a.uv[2 * i];
-    p.r1 = v - a.uv[2 * i + 1];
-    p.r2 = p.stereo ? (u - a.bf * p.iz) - ur : 0.0f;
+    p.stereo = o.ur >= 0.0f;
+    p.r0 = u - o.u;
+    p.r1 = v - o.v;
+    p.r2 = p.stereo ? (u - a.bf * p.iz) - o.ur : 0.0f;
     const float e2 = p.r0 * p.r0 + p.r1 * p.r1 + (p.stereo ? p.r2 * p.r2 : 0.0f);
-    p.c2 = e2 * a.inv2[i];
+    p.c2 = e2 * o.inv2;
     return p;
 }
 
@@ -112,10 +155,58 @@ __device__ __forceinline__ float huber_rho(float c2, float e, float delta) {
     return e <= delta ? c2 : 2.0f * delta * e - delta * delta;
 }
 
-// The block's sums of v[0..K) into out[0..K) (shared), visible to every
-// thread on return.
+// index of H[i][j], i <= j, in the packed upper triangle
+__host__ __device__ constexpr int hidx(int i, int j) { return i * 6 - i * (i - 1) / 2 + (j - i); }
+
+// One observation's terms added to acc: the robust cost (acc[NACC-1]) and H,
+// b. GATE: the round-boundary chi2 re-gate sets `inl` from this projection;
+// else `inl` is the running mask.
+template <bool GATE>
+__device__ __forceinline__ void accumulate(const Proj& p, const Obs& o, bool valid, bool& inl,
+                                           const Args& a, float (&acc)[NACC]) {
+    const float delta = p.stereo ? HUBER_STEREO : HUBER_MONO;
+    const float e = huber_e(p.c2);
+    const float rho = huber_rho(p.c2, e, delta);
+    if (GATE) {
+        inl = valid && p.c2 <= (p.stereo ? CHI2_STEREO : CHI2_MONO) && p.z > 1e-4f;
+        acc[NACC - 1] += inl ? rho : 0.0f;
+    } else {
+        acc[NACC - 1] += (inl && p.z > 1e-4f) ? rho : 0.0f;
+    }
+    const bool active = inl && p.z > 1e-4f;
+    const float wh = e <= delta ? 1.0f : delta / e;
+    const float w = o.inv2 * wh * (active ? 1.0f : 0.0f);
+    // d(u, v, ur)/d(camera point) times [I | -hat(pc)]
+    const float iz = p.iz, iz2 = iz * iz;
+    const float d[3][3] = {
+        {a.fx * iz, 0.0f, -a.fx * p.x * iz2},
+        {0.0f, a.fy * iz, -a.fy * p.y * iz2},
+        {p.stereo ? a.fx * iz : 0.0f, 0.0f, p.stereo ? -a.fx * p.x * iz2 + a.bf * iz2 : 0.0f}};
+    float J[3][6];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+        J[r][0] = d[r][0];
+        J[r][1] = d[r][1];
+        J[r][2] = d[r][2];
+        J[r][3] = -d[r][1] * p.z + d[r][2] * p.y;
+        J[r][4] = d[r][0] * p.z - d[r][2] * p.x;
+        J[r][5] = -d[r][0] * p.y + d[r][1] * p.x;
+    }
+    const float res[3] = {p.r0, p.r1, p.r2};
+#pragma unroll
+    for (int i6 = 0; i6 < 6; ++i6) {
+        const float w0 = J[0][i6] * w, w1 = J[1][i6] * w, w2 = J[2][i6] * w;
+#pragma unroll
+        for (int j6 = i6; j6 < 6; ++j6)
+            acc[hidx(i6, j6)] += w0 * J[0][j6] + w1 * J[1][j6] + w2 * J[2][j6];
+        acc[NH + i6] += w0 * res[0] + w1 * res[1] + w2 * res[2];
+    }
+}
+
+// A point warp's xor-shuffle sums of v[0..K), written by its lane 0 to
+// red[warp].
 template <int K>
-__device__ __forceinline__ void block_sum(float (&v)[K], float (*red)[NACC], float* out) {
+__device__ __forceinline__ void warp_sums(float (&v)[K], float (*red)[NACC]) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -126,63 +217,49 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float (*red)[NACC], flo
 #pragma unroll
         for (int k = 0; k < K; ++k) red[warp][k] = v[k];
     }
-    __syncthreads();
-    if (threadIdx.x < K) {
-        float s = 0.0f;
+}
+
+// The block's sum of value k < NACC: the warps' sums in warp order.
+__device__ __forceinline__ float block_total(float (*red)[NACC], int k) {
+    float s = 0.0f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += red[w][threadIdx.x];
-        out[threadIdx.x] = s;
-    }
-    __syncthreads();
+    for (int w = 0; w < WARPS; ++w) s += red[w][k];
+    return s;
 }
 
-// Σ huber_rho over the observations the mask lets through at pose (R, t).
-__device__ __forceinline__ float robust_cost_part(const float* R, const float* t, const Args& a) {
-    float c = 0.0f;
-    for (int i = threadIdx.x; i < a.n; i += THREADS) {
-        const Proj p = project(R, t, a, i);
-        const float delta = p.stereo ? HUBER_STEREO : HUBER_MONO;
-        const float rho = huber_rho(p.c2, huber_e(p.c2), delta);
-        c += (a.inliers[i] && p.z > 1e-4f) ? rho : 0.0f;
-    }
-    return c;
-}
-
-// index of H[i][j], i <= j, in the packed upper triangle
-__host__ __device__ constexpr int hidx(int i, int j) { return i * 6 - i * (i - 1) / 2 + (j - i); }
-
-// (H + lam * diag(damping + diag H)) xi = -b by Cholesky; false (and xi
-// NaN) if a pivot is not positive.
-__device__ bool solve6(const float* H, const float* b, float lam, float damping, float* xi) {
-    float L[6][6];
-    for (int i = 0; i < 6; ++i)
-        for (int j = 0; j <= i; ++j) {
-            float s = H[hidx(j, i)];
-            if (i == j) s = s + lam * (damping + s);
-            for (int k = 0; k < j; ++k) s -= L[i][k] * L[j][k];
-            if (i == j) {
-                if (!(s > 0.0f)) {
-                    for (int r = 0; r < 6; ++r) xi[r] = __int_as_float(0x7fc00000);
-                    return false;
+// A pass of the point warps over their points at pose (R, t): the robust
+// cost and H, b summed over the block into red, while the solver warp runs
+// `beside`; then the barrier.
+template <int PPT, bool GATE, typename Beside>
+__device__ __forceinline__ void sweep(const float* R, const float* t, const Args& a,
+                                      Points<PPT>& pts, float (*red)[NACC], Beside beside) {
+    if (threadIdx.x < THREADS) {
+        float acc[NACC];
+#pragma unroll
+        for (int k = 0; k < NACC; ++k) acc[k] = 0.0f;
+        if constexpr (PPT > 0) {
+#pragma unroll
+            for (int k = 0; k < PPT; ++k) {
+                if ((int)threadIdx.x + THREADS * k < a.n) {
+                    bool inl = (pts.inl >> k) & 1u;
+                    accumulate<GATE>(project(R, t, a, pts.o[k]), pts.o[k],
+                                     (pts.valid >> k) & 1u, inl, a, acc);
+                    if (GATE) pts.inl = inl ? pts.inl | (1u << k) : pts.inl & ~(1u << k);
                 }
-                L[i][i] = sqrtf(s);
-            } else {
-                L[i][j] = s / L[j][j];
+            }
+        } else {
+            for (int i = threadIdx.x; i < a.n; i += THREADS) {
+                const Obs o = load_obs(a, i);
+                bool inl = a.inliers[i] != 0;
+                accumulate<GATE>(project(R, t, a, o), o, a.valid[i] != 0, inl, a, acc);
+                if (GATE) a.inliers[i] = inl ? 1 : 0;
             }
         }
-    float y[6];
-    for (int i = 0; i < 6; ++i) {
-        float s = b[i];
-        for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-        y[i] = s / L[i][i];
+        warp_sums<NACC>(acc, red);
+    } else {
+        beside();
     }
-    for (int i = 5; i >= 0; --i) {
-        float s = y[i];
-        for (int k = i + 1; k < 6; ++k) s -= L[k][i] * xi[k];
-        xi[i] = s / L[i][i];
-    }
-    for (int i = 0; i < 6; ++i) xi[i] = -xi[i];
-    return true;
+    __syncthreads();
 }
 
 // se3_exp(xi) composed on the left of (R, t): geometry/lie.py `se3_exp`,
@@ -217,120 +294,201 @@ __device__ void exp_compose(const float* xi, const float* R, const float* t, flo
     }
 }
 
-__global__ void __launch_bounds__(THREADS) pose_lm_kernel(const Args a) {
-    __shared__ float sR[9], st[3], nR[9], nt[3];
+// Warp 0's step (all 32 lanes call it): xi of (H + lam * diag(damping +
+// diag H)) xi = -b by Cholesky, H and b packed in Hb, each value by the
+// sequence of operations of the serial loop `for i, for j <= i` (the
+// diagonal damped first, then the products of earlier columns subtracted in
+// column order, then the square root or the division); a pivot that is not
+// positive makes xi NaN. The factor's columns and the forward substitution
+// run over lanes 0-5 (lane r owns row r; lanes above 5 repeat row 5), the
+// back substitution, whose sums run in column order, in every lane; then
+// lane 0 composes se3_exp(xi) onto (R, t) into (Rn, tn). Returns the finite
+// guard (xi finite), the same in every lane.
+__device__ bool solve_step(const float* Hb, float lam, float damping, const float* R,
+                           const float* t, float* Rn, float* tn) {
+    const int lane = threadIdx.x & 31, r = lane < 6 ? lane : 5;
+    float s[6];  // row r's running sums, columns 0..r
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+        s[j] = j <= r ? Hb[hidx(j <= r ? j : r, r)] : 0.0f;
+        if (j == r) s[j] = s[j] + lam * (damping + s[j]);
+    }
+    float Lr[6];  // row r of the factor
+    bool bad = false;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+        float dkk = 0.0f;
+        if (r == k) {
+            bad = !(s[k] > 0.0f);
+            dkk = sqrtf(s[k]);
+        }
+        const float Lkk = __shfl_sync(FULL, dkk, k);
+        Lr[k] = r == k ? Lkk : (r > k ? s[k] / Lkk : 0.0f);
+#pragma unroll
+        for (int j = k + 1; j < 6; ++j) {
+            const float Ljk = __shfl_sync(FULL, Lr[k], j);
+            if (j <= r) s[j] -= Lr[k] * Ljk;
+        }
+    }
+    bad = __any_sync(FULL, bad);
+    float y[6];
+    float sy = Hb[NH + r];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+        y[k] = __shfl_sync(FULL, r == k ? sy / Lr[k] : 0.0f, k);
+        if (r > k) sy -= Lr[k] * y[k];
+    }
+    float L[6][6];  // the factor's columns below the diagonal, in every lane
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+        for (int k = i; k < 6; ++k) L[k][i] = __shfl_sync(FULL, Lr[i], k);
+    }
+    float xi[6];
+#pragma unroll
+    for (int i = 5; i >= 0; --i) {
+        float v = y[i];
+#pragma unroll
+        for (int k = i + 1; k < 6; ++k) v -= L[k][i] * xi[k];
+        xi[i] = v / L[i][i];
+    }
+    bool finite = true;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+        xi[i] = bad ? __int_as_float(0x7fc00000) : -xi[i];
+        finite = finite && isfinite(xi[i]);
+    }
+    if (lane == 0) exp_compose(xi, R, t, Rn, tn);
+    return finite;
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(BLOCK) pose_lm_kernel(const Args a) {
+    __shared__ float sR[9], st[3], nR[9], nt[3], rR[9], rt[3];
     __shared__ float red[WARPS][NACC];
-    __shared__ float tot[NACC];
-    __shared__ float s_cost, s_lam;
-    __shared__ bool s_finite;
-    const int tid = threadIdx.x;
+    __shared__ float Hb[NH + 6];  // H and b at the accepted pose
+    const int tid = threadIdx.x, lane = tid & 31;
+    const bool solver = tid >= THREADS;
+    const auto idle = [] {};
+    Points<PPT> pts;
+    if constexpr (PPT > 0) {
+        pts.valid = 0u;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+            const int i = tid + THREADS * k;
+            if (!solver && i < a.n) {
+                pts.o[k] = load_obs(a, i);
+                pts.valid |= (a.valid[i] ? 1u : 0u) << k;
+            }
+        }
+        pts.inl = pts.valid;
+    } else if (!solver) {
+        for (int i = tid; i < a.n; i += THREADS) a.inliers[i] = a.valid[i] ? 1 : 0;
+    }
     if (tid < 9) sR[tid] = a.R0[tid];
     if (tid < 3) st[tid] = a.t0[tid];
-    for (int i = tid; i < a.n; i += THREADS) a.inliers[i] = a.valid[i] ? 1 : 0;
     __syncthreads();
-    {
-        float c[1] = {robust_cost_part(sR, st, a)};
-        block_sum<1>(c, red, tot);
-    }
-    if (tid == 0) {
-        s_cost = tot[0];
-        s_lam = 1e-3f;
-    }
+    // the solver warp's registers: the accepted pose's robust cost, lambda,
+    // the finite guard of the candidate in flight and of the speculative one
+    float cost = 0.0f, lam = 0.0f;
+    bool finite = false, rfinite = false;
     const int steps = a.rounds * a.iters;
+    // the first step's normal equations and the starting cost, over the valid points
+    sweep<PPT, false>(sR, st, a, pts, red, idle);
+    if (solver) {
+        const float tot = lane < NACC ? block_total(red, lane) : 0.0f;
+        if (lane < NH + 6) Hb[lane] = tot;
+        cost = __shfl_sync(FULL, tot, NACC - 1);
+        lam = 1e-3f;
+        __syncwarp();
+        if (steps > 0) finite = solve_step(Hb, lam, a.damping, sR, st, nR, nt);
+    }
+    __syncthreads();
     for (int step = 0; step < steps; ++step) {
-        const bool gate = (step % a.iters == 0) && step > 0;
-        float acc[NACC];
-#pragma unroll
-        for (int k = 0; k < NACC; ++k) acc[k] = 0.0f;
-        __syncthreads();  // s_cost / s_lam of the last step, sR / st
-        for (int i = tid; i < a.n; i += THREADS) {
-            const Proj p = project(sR, st, a, i);
-            const float delta = p.stereo ? HUBER_STEREO : HUBER_MONO;
-            const float e = huber_e(p.c2);
-            bool inl;
-            if (gate) {
-                // round-boundary chi2 re-gate, reusing this pass's residuals
-                inl = a.valid[i] && p.c2 <= (p.stereo ? CHI2_STEREO : CHI2_MONO) && p.z > 1e-4f;
-                a.inliers[i] = inl ? 1 : 0;
-                acc[NACC - 1] += inl ? huber_rho(p.c2, e, delta) : 0.0f;
-            } else {
-                inl = a.inliers[i] != 0;
-            }
-            const bool active = inl && p.z > 1e-4f;
-            const float wh = e <= delta ? 1.0f : delta / e;
-            const float w = a.inv2[i] * wh * (active ? 1.0f : 0.0f);
-            // d(u, v, ur)/d(camera point) times [I | -hat(pc)]
-            const float iz = p.iz, iz2 = iz * iz;
-            const float d[3][3] = {
-                {a.fx * iz, 0.0f, -a.fx * p.x * iz2},
-                {0.0f, a.fy * iz, -a.fy * p.y * iz2},
-                {p.stereo ? a.fx * iz : 0.0f, 0.0f,
-                 p.stereo ? -a.fx * p.x * iz2 + a.bf * iz2 : 0.0f}};
-            float J[3][6];
-#pragma unroll
-            for (int r = 0; r < 3; ++r) {
-                J[r][0] = d[r][0];
-                J[r][1] = d[r][1];
-                J[r][2] = d[r][2];
-                J[r][3] = -d[r][1] * p.z + d[r][2] * p.y;
-                J[r][4] = d[r][0] * p.z - d[r][2] * p.x;
-                J[r][5] = -d[r][0] * p.y + d[r][1] * p.x;
-            }
-            const float res[3] = {p.r0, p.r1, p.r2};
-#pragma unroll
-            for (int i6 = 0; i6 < 6; ++i6) {
-                const float w0 = J[0][i6] * w, w1 = J[1][i6] * w, w2 = J[2][i6] * w;
-#pragma unroll
-                for (int j6 = i6; j6 < 6; ++j6)
-                    acc[hidx(i6, j6)] += w0 * J[0][j6] + w1 * J[1][j6] + w2 * J[2][j6];
-                acc[NH + i6] += w0 * res[0] + w1 * res[1] + w2 * res[2];
-            }
-        }
-        block_sum<NACC>(acc, red, tot);
-        if (tid == 0) {
-            if (gate) {
-                s_cost = tot[NACC - 1];
-                s_lam = 1e-3f;
-            }
-            float xi[6];
-            solve6(tot, tot + NH, s_lam, a.damping, xi);
-            bool finite = true;
-            for (int k = 0; k < 6; ++k) finite = finite && isfinite(xi[k]);
-            s_finite = finite;
-            exp_compose(xi, sR, st, nR, nt);
-        }
-        __syncthreads();
-        {
-            float c[1] = {robust_cost_part(nR, nt, a)};
-            block_sum<1>(c, red, tot);
-        }
-        if (tid == 0) {
-            const float cost_new = tot[0];
+        const int next = step + 1;
+        const bool gate_next = next < steps && next % a.iters == 0;
+        const bool speculate = next < steps && !gate_next;
+        // the candidate: its cost, and H and b there for the next step; the
+        // solver warp meanwhile solves the next step as a rejection would
+        // leave it (the same H, b and pose, lambda x 4)
+        sweep<PPT, false>(nR, nt, a, pts, red, [&] {
+            if (speculate)
+                rfinite = solve_step(Hb, fminf(fmaxf(lam * 4.0f, 1e-6f), 1e6f), a.damping, sR,
+                                     st, rR, rt);
+        });
+        if (solver) {
+            const float tot = lane < NACC ? block_total(red, lane) : 0.0f;
+            const float cost_new = __shfl_sync(FULL, tot, NACC - 1);
             // the finite guard: a NaN candidate pose closes every depth gate
             // and would price at 0
-            const bool accept = cost_new < s_cost && s_finite && isfinite(cost_new);
+            const bool accept = cost_new < cost && finite && isfinite(cost_new);
             if (accept) {
-                for (int k = 0; k < 9; ++k) sR[k] = nR[k];
-                for (int k = 0; k < 3; ++k) st[k] = nt[k];
-                s_cost = cost_new;
+                if (lane < 9) sR[lane] = nR[lane];
+                if (lane < 3) st[lane] = nt[lane];
+                if (lane < NH + 6) Hb[lane] = tot;
+                cost = cost_new;
             }
-            const float lam = accept ? s_lam * 0.5f : s_lam * 4.0f;
-            s_lam = fminf(fmaxf(lam, 1e-6f), 1e6f);
+            const float l = accept ? lam * 0.5f : lam * 4.0f;
+            lam = fminf(fmaxf(l, 1e-6f), 1e6f);
+            __syncwarp();
+            if (speculate) {
+                if (accept) {
+                    finite = solve_step(Hb, lam, a.damping, sR, st, nR, nt);
+                } else {
+                    if (lane < 9) nR[lane] = rR[lane];
+                    if (lane < 3) nt[lane] = rt[lane];
+                    finite = rfinite;
+                }
+            }
         }
+        if (gate_next) {
+            // round boundary: the chi2 re-gate at the accepted pose, the
+            // cost reset and lambda <- 1e-3, with sums of its own
+            __syncthreads();
+            sweep<PPT, true>(sR, st, a, pts, red, idle);
+            if (solver) {
+                const float tot = lane < NACC ? block_total(red, lane) : 0.0f;
+                if (lane < NH + 6) Hb[lane] = tot;
+                cost = __shfl_sync(FULL, tot, NACC - 1);
+                lam = 1e-3f;
+                __syncwarp();
+                finite = solve_step(Hb, lam, a.damping, sR, st, nR, nt);
+            }
+        }
+        __syncthreads();
+    }
+    // the final chi2 gate at the accepted pose
+    if (!solver) {
+        float cnt[1] = {0.0f};
+        if constexpr (PPT > 0) {
+#pragma unroll
+            for (int k = 0; k < PPT; ++k) {
+                const int i = tid + THREADS * k;
+                if (i < a.n) {
+                    const Proj p = project(sR, st, a, pts.o[k]);
+                    const bool inl = ((pts.valid >> k) & 1u) &&
+                                     p.c2 <= (p.stereo ? CHI2_STEREO : CHI2_MONO) && p.z > 1e-4f;
+                    a.inliers[i] = inl ? 1 : 0;
+                    a.chi2[i] = p.c2;
+                    cnt[0] += inl ? 1.0f : 0.0f;  // exact below 2^24 points
+                }
+            }
+        } else {
+            for (int i = tid; i < a.n; i += THREADS) {
+                const Proj p = project(sR, st, a, load_obs(a, i));
+                const bool inl =
+                    a.valid[i] && p.c2 <= (p.stereo ? CHI2_STEREO : CHI2_MONO) && p.z > 1e-4f;
+                a.inliers[i] = inl ? 1 : 0;
+                a.chi2[i] = p.c2;
+                cnt[0] += inl ? 1.0f : 0.0f;
+            }
+        }
+        warp_sums<1>(cnt, red);
     }
     __syncthreads();
-    float cnt[1] = {0.0f};
-    for (int i = tid; i < a.n; i += THREADS) {
-        const Proj p = project(sR, st, a, i);
-        const bool inl = a.valid[i] && p.c2 <= (p.stereo ? CHI2_STEREO : CHI2_MONO) && p.z > 1e-4f;
-        a.inliers[i] = inl ? 1 : 0;
-        a.chi2[i] = p.c2;
-        cnt[0] += inl ? 1.0f : 0.0f;  // exact below 2^24 points
-    }
-    block_sum<1>(cnt, red, tot);
     if (tid < 9) a.R[tid] = sR[tid];
     if (tid < 3) a.t[tid] = st[tid];
-    if (tid == 0) *a.n_inliers = (long long)tot[0];
+    if (tid == 0) *a.n_inliers = (long long)block_total(red, 0);
 }
 
 }  // namespace
@@ -367,6 +525,9 @@ extern "C" int pose_lm_launch(const void* R0, const void* t0, const void* X, con
     a.inliers = (unsigned char*)inliers;
     a.n_inliers = (long long*)n_inliers;
     a.chi2 = (float*)chi2;
-    pose_lm_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(a);
+    if (n <= STAGED * THREADS)
+        pose_lm_kernel<STAGED><<<1, BLOCK, 0, (cudaStream_t)stream>>>(a);
+    else
+        pose_lm_kernel<0><<<1, BLOCK, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -12,7 +12,9 @@ name (the pipelined System's workers are the threads named "mapping" and
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -90,14 +92,15 @@ def _run_all(cmds, verbose):
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into one shared library in the build directory
-    (skipped when a library built from the same sources and flags is already
-    there). Returns the library path. Raises on any compiler failure.
-    `verbose` prints the compiler's output (`-Xptxas -v`: registers, shared
-    memory and spills of every kernel)."""
+def build(verbose: bool = False, sources=SOURCES) -> str:
+    """Compile csrc/*.cu (or other `sources` defining the same C entries)
+    into one shared library in the build directory (skipped when a library
+    built from the same sources and flags is already there). Returns the
+    library path. Raises on any compiler failure. `verbose` prints the
+    compiler's output (`-Xptxas -v`: registers, shared memory and spills of
+    every kernel)."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sources:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -107,11 +110,11 @@ def build(verbose: bool = False) -> str:
     if not os.path.exists(lib_path):
         nvcc = _find_nvcc()
         stem = f"{lib_path}.{os.getpid()}.{threading.get_ident()}"
-        objs = [f"{stem}.{i}.o" for i in range(len(SOURCES))]
+        objs = [f"{stem}.{i}.o" for i in range(len(sources))]
         extra = ["-Xptxas", "-v"] if verbose else []
         try:
             _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, src]
-                      for src, obj in zip(SOURCES, objs)], verbose)
+                      for src, obj in zip(sources, objs)], verbose)
             _run_all([[nvcc, "-shared", "-o", f"{stem}.tmp", *objs]], verbose)
             os.replace(f"{stem}.tmp", lib_path)
         finally:
@@ -127,13 +130,35 @@ def load(verbose: bool = False):
     global _lib
     with _load_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build(verbose))
-            for name, args in ENTRIES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = [*args, _P]
-                fn.restype = _I
-            _lib = lib
+            _lib = _open(build(verbose))
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _open(path):
+    lib = ctypes.CDLL(path)
+    for name, args in ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [*args, _P]
+        fn.restype = _I
+    return lib
+
+
+@contextlib.contextmanager
+def using(lib_path):
+    """Inside the block every wrapper, in every thread, launches from the
+    kernel library at `lib_path` (built by `build` from other sources, e.g.
+    an earlier commit's csrc/*.cu) instead of this package's; launches count
+    as usual. For holding two builds of the kernels against each other."""
+    global _lib
+    own, other = load(), _open(lib_path)
+    with _load_lock:
+        _lib = other
+    try:
+        yield
+    finally:
+        with _load_lock:
+            _lib = own
 
 
 def launch(name, entry, device, *args):

@@ -19,7 +19,7 @@ from gf_orb_slam2_tpu_torch.ops import cuda_lib
 NAME = "greedy_select"
 DIMS = (7, 13)      # the kernel's template instances: the 7-dof pose and the 13-state hybrid
 MAX_BATCH = 64
-MAX_SLOTS = 50000   # the round's scores live in shared memory, 4 bytes a slot
+MAX_SLOTS = 16384   # shared memory: 13 bytes a slot (the largest pool of any path: 4096)
 
 
 def greedy_select(obs_mats, valid, n_select: int, batch: int, lazier_factor: int,

@@ -105,6 +105,101 @@ def test_dispatch_on_cpu_is_the_plain_version():
         assert torch.equal(g, w)
 
 
+def _one_pass_schedule(R0, t0, Xw, uv, u_right, inv_sigma2, valid, fx, fy, cx, cy, bf,
+                       rounds, iters, damping=1e-5):
+    """csrc/pose_lm.cu's step schedule, written in torch from optim/pose_opt.py's
+    own helpers: ONE pass a step at the candidate pose, which sums its robust
+    cost and its H and b; an accepted candidate's H and b are the next step's,
+    a rejected one's are dropped and the kept H and b are solved again with
+    the new lambda; the first step and each round's re-gate step make a pass
+    of their own at the accepted pose. Returns the result and the passes."""
+    dt = Xw.dtype
+    is_stereo = u_right >= 0
+    chi2_th = torch.where(is_stereo, tpose.CHI2_STEREO, tpose.CHI2_MONO).to(dt)
+    delta = torch.where(is_stereo, tpose.HUBER_STEREO, tpose.HUBER_MONO).to(dt)
+    d2 = delta * delta
+    eye6 = torch.eye(6, dtype=dt)
+    passes = 0
+
+    def sweep(R, t, inlier, gate):
+        nonlocal passes
+        passes += 1
+        r, J, depth = tpose._residuals_jacobians(R, t, Xw, uv, u_right, fx, fy, cx, cy, bf)
+        c2 = tpose._chi2(r, inv_sigma2, is_stereo)
+        e = torch.sqrt(torch.clamp(c2, min=1e-12))
+        rho = torch.where(e <= delta, c2, 2.0 * delta * e - d2)
+        if gate:
+            inlier = valid & (c2 <= chi2_th) & (depth > 1e-4)
+            cost = torch.sum(torch.where(inlier, rho, 0.0))
+        else:
+            cost = torch.sum(torch.where(inlier & (depth > 1e-4), rho, 0.0))
+        active = inlier & (depth > 1e-4)
+        w = inv_sigma2 * torch.where(e <= delta, 1.0, delta / e) * active.to(dt)
+        Jw = J * w[:, None, None]
+        return (torch.einsum("nri,nrj->ij", Jw, J), torch.einsum("nri,nr->i", Jw, r), cost,
+                inlier)
+
+    R, t = R0, t0
+    H, b, cost, inlier = sweep(R, t, valid, gate=False)
+    lam0 = torch.full((), 1e-3, dtype=dt)
+    lam = lam0.clone()
+    steps = rounds * iters
+    for step in range(steps):
+        xi = -torch.linalg.solve_ex(H + lam * (eye6 * (damping + torch.diagonal(H))), b)[0]
+        dR, dtr = tlie.se3_exp(xi)
+        R_new, t_new = tlie.se3_compose(dR, dtr, R, t)
+        H_new, b_new, cost_new, _ = sweep(R_new, t_new, inlier, gate=False)
+        accept = (cost_new < cost) & torch.isfinite(xi).all() & torch.isfinite(cost_new)
+        if bool(accept):
+            R, t, H, b, cost = R_new, t_new, H_new, b_new, cost_new
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-6, 1e6)
+        if step + 1 < steps and (step + 1) % iters == 0:
+            H, b, cost, inlier = sweep(R, t, valid, gate=True)
+            lam = lam0
+    r, pc, _ = tpose._project(R, t, Xw, uv, u_right, is_stereo, fx, fy, cx, cy, bf)
+    c2 = tpose._chi2(r, inv_sigma2, is_stereo)
+    inliers = valid & (c2 <= chi2_th) & (pc[..., 2] > 1e-4)
+    return tpose.PoseOptResult(R, t, inliers, inliers.sum(), c2), passes
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["mixed", "mono"])
+@pytest.mark.parametrize("schedule", [(3, 8), (4, 10)], ids=["3x8", "4x10"])
+def test_one_pass_schedule_equals_plain_version_bit_for_bit(schedule, mono):
+    """The kernel's schedule (one pass a step, H and b kept on a rejected
+    step, the re-gate step's own pass) computes every value the plain
+    version computes, on the same operations: bit for bit, 30 % outliers
+    crossing the gate. 3 x 8 takes 28 passes where the plain version takes
+    50 (1 + 2 a step + the final gate)."""
+    args, _ = _problem(21 + mono, 1000, mono=mono)
+    ts = [torch.from_numpy(a) for a in args]
+    got, passes = _one_pass_schedule(*ts, FX, FY, CX, CY, BF, *schedule)
+    want = tpose.pose_optimization_ref(*ts, FX, FY, CX, CY, BF, *schedule)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rounds, iters = schedule
+    assert passes == 1 + rounds * iters + (rounds - 1)
+    valid = args[-1]
+    assert int(got.n_inliers) < 0.8 * int(valid.sum())  # the gate took the outliers out
+
+
+def test_one_pass_schedule_edge_cases_bit_for_bit():
+    """No valid point (every step rejected, the pose kept bit for bit), every
+    point behind the camera, a non-finite point (every step NaN, rejected)."""
+    args, _ = _problem(35, 300)
+    R0, t0, X, uv, ur, inv2, valid = (torch.from_numpy(a) for a in args)
+    nan_X = X.clone()
+    nan_X[0] = float("nan")
+    for case in ([R0, t0, X, uv, ur, inv2, torch.zeros_like(valid)],
+                 [R0, t0, -X, uv, ur, inv2, torch.ones_like(valid)],
+                 [R0, t0, nan_X, uv, ur, inv2, valid]):
+        got, _ = _one_pass_schedule(*case, FX, FY, CX, CY, BF, 3, 8)
+        want = tpose.pose_optimization_ref(*case, FX, FY, CX, CY, BF, 3, 8)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w) or torch.equal(g.isnan(), w.isnan()) and torch.equal(
+                g.nan_to_num(), w.nan_to_num())
+    assert torch.equal(got.R, R0) and torch.equal(got.t, t0)
+
+
 def _no_build(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the kernel library was built before the checks")
@@ -142,7 +237,8 @@ def _cuda_or_skip():
 def test_kernel_equals_plain_version_on_the_card(schedule):
     """R and t within 1e-4, inliers and n_inliers exact, one launch."""
     dev = _cuda_or_skip()
-    for seed, n, mono in ((31, 1024, False), (32, 1000, True), (33, 37, False), (34, 0, False)):
+    for seed, n, mono in ((31, 1024, False), (32, 1000, True), (33, 37, False), (34, 0, False),
+                          (36, 1024, True), (37, 2000, False)):
         args, _ = _problem(seed, n, mono=mono)
         ts = [torch.from_numpy(a).to(dev) for a in args]
         before = cuda_lib.launch_counts["pose_lm"]
@@ -156,15 +252,27 @@ def test_kernel_equals_plain_version_on_the_card(schedule):
 
 
 @pytest.mark.cuda
-def test_kernel_edge_cases_on_the_card():
+@pytest.mark.parametrize("n", [50, 1024, 2000], ids=["n50", "n1024", "n2000"])
+def test_kernel_edge_cases_on_the_card(n):
     """No valid point keeps the pose bit for bit; every point behind the
-    camera lets no NaN out."""
+    camera lets no NaN out; a non-finite point makes every step NaN, all
+    rejected: the pose bit for bit. N = 2000 reads the points from memory
+    (above the 1024 held in registers)."""
     dev = _cuda_or_skip()
-    args, _ = _problem(35, 50)
-    R0, t0, X, uv, ur, inv2, _ = (torch.from_numpy(a).to(dev) for a in args)
-    none = torch.zeros(50, dtype=torch.bool, device=dev)
-    got = tpose.pose_optimization(R0, t0, X, uv, ur, inv2, none, FX, FY, CX, CY, BF, 2, 4)
-    assert torch.equal(got.R, R0) and torch.equal(got.t, t0) and int(got.n_inliers) == 0
-    got = tpose.pose_optimization(R0, t0, -X, uv, ur, inv2, ~none, FX, FY, CX, CY, BF, 2, 4)
-    assert torch.isfinite(got.R).all() and torch.isfinite(got.t).all()
-    assert int(got.n_inliers) == 0
+    args, _ = _problem(35, n)
+    R0, t0, X, uv, ur, inv2, valid = (torch.from_numpy(a).to(dev) for a in args)
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    for sched in ((2, 4), (3, 8), (4, 10)):
+        got = tpose.pose_optimization(R0, t0, X, uv, ur, inv2, none, FX, FY, CX, CY, BF, *sched)
+        assert torch.equal(got.R, R0) and torch.equal(got.t, t0) and int(got.n_inliers) == 0
+        got = tpose.pose_optimization(R0, t0, -X, uv, ur, inv2, ~none, FX, FY, CX, CY, BF, *sched)
+        assert torch.isfinite(got.R).all() and torch.isfinite(got.t).all()
+        assert int(got.n_inliers) == 0
+        nan_X = X.clone()
+        nan_X[0] = float("nan")
+        got = tpose.pose_optimization(R0, t0, nan_X, uv, ur, inv2, valid, FX, FY, CX, CY, BF,
+                                      *sched)
+        want = tpose.pose_optimization_ref(R0, t0, nan_X, uv, ur, inv2, valid, FX, FY, CX, CY,
+                                           BF, *sched)
+        assert torch.equal(got.R, R0) and torch.equal(got.t, t0)
+        assert torch.equal(got.inliers, want.inliers)
