@@ -30,7 +30,6 @@ The matching of both device stages goes through `hamming.distance_best2`
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List
 
 import numpy as np
@@ -46,6 +45,7 @@ from gf_orb_slam2_tpu_torch.optim.local_ba import (
 from gf_orb_slam2_tpu_torch.selection.anticipation import anticipated_subgraph_size
 from gf_orb_slam2_tpu_torch.selection.good_graph import select_subgraph
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
+from gf_orb_slam2_tpu_torch.utils import tracing
 from gf_orb_slam2_tpu_torch.utils.transfer import to_device, to_host
 
 O_CAP = 12  # observation slots per point in the BA problem
@@ -189,12 +189,12 @@ class LocalMapper:
         self._generator = torch.Generator(device=self.device)
         self.recent_points: List[tuple] = []  # (point_id, birth_kf)
         self.stats: List[MappingStats] = []
-        # host ms of each stage per event: refresh, triangulate_fuse and
-        # local_ba (host gathering + upload + device + download), writeback
-        # (both stages' store updates), cull, hash (the MIH insert and table
+        # host ms of each stage per event, from its span: refresh,
+        # triangulate_fuse and local_ba (host gathering + upload + device +
+        # download: each stage's time outside its write-back), writeback (both
+        # stages' store updates), cull, hash (the MIH insert and table
         # selection; ~0 with hashing off)
         self.event_ms: List[dict] = []
-        self._writeback_ms = {"triangulate_fuse": 0.0, "local_ba": 0.0}
         self.velocity_provider = None  # () -> 4x4 velocity or None (anticipation)
         self.mih = None  # the multi-index hash, set by System when hashing is on
 
@@ -208,27 +208,23 @@ class LocalMapper:
         (LocalMapping.cc mbAbortBA): the worker sets it on the older KFs of a
         batch, whose covisibility window the newest KF's BA covers."""
         st = MappingStats(kf=kf)
-        self._writeback_ms = {"triangulate_fuse": 0.0, "local_ba": 0.0}
-        t0 = time.perf_counter()
-        st.n_culled_points = self.refresh(kf)
-        t1 = time.perf_counter()
-        st.n_new_points, st.n_fused = self.create_and_fuse(kf)
-        t2 = time.perf_counter()
-        if not skip_ba:
-            self.run_local_ba(kf, st)
-        t3 = time.perf_counter()
-        st.n_culled_kfs = self.cull_keyframes(kf)
-        t4 = time.perf_counter()
-        self.update_hash_tables(kf)
-        t5 = time.perf_counter()
-        wb = self._writeback_ms
+        frame = int(self.store.kf_frame_id[kf])
+        with tracing.timed("map.event", kf=kf, frame=frame, skip_ba=skip_ba):
+            with tracing.timed("map.refresh") as refresh:
+                st.n_culled_points = self.refresh(kf)
+            with tracing.timed("map.triangulate_fuse") as tri:
+                st.n_new_points, st.n_fused = self.create_and_fuse(kf)
+            with tracing.timed("map.local_ba") as ba:
+                if not skip_ba:
+                    self.run_local_ba(kf, st)
+            with tracing.timed("map.cull") as cull:
+                st.n_culled_kfs = self.cull_keyframes(kf)
+            with tracing.timed("map.hash") as hashing:
+                self.update_hash_tables(kf)
+        # a stage's own time leaves out its write-back (its one child span)
         self.event_ms.append({
-            "refresh": (t1 - t0) * 1e3,
-            "triangulate_fuse": (t2 - t1) * 1e3 - wb["triangulate_fuse"],
-            "local_ba": (t3 - t2) * 1e3 - wb["local_ba"],
-            "writeback": wb["triangulate_fuse"] + wb["local_ba"],
-            "cull": (t4 - t3) * 1e3,
-            "hash": (t5 - t4) * 1e3})
+            "refresh": refresh.ms, "triangulate_fuse": tri.self_ms, "local_ba": ba.self_ms,
+            "writeback": tri.child_ms + ba.child_ms, "cull": cull.ms, "hash": hashing.ms})
         self.stats.append(st)
         return st
 
@@ -366,14 +362,13 @@ class LocalMapper:
                 d["pt_pos"], d["pt_valid"], d["pt_desc"],
                 d["uv"][r], d["oct"][r], d["kpv"][r], d["desc"][r])
         h = to_host(out)
-        t_wb = time.perf_counter()
         created = fused = 0
-        if tri is not None:
-            created = self._tri_writeback(kf, tri[0], h["Xw"], h["tri_idx"], h["tri_ok"], v0)
-        if fuse is not None:
-            dsts, _, pts_list = fuse
-            fused = self._fuse_writeback(kf, pts_list, dsts, h["fuse_idx"], h["fuse_ok"], v0)
-        self._writeback_ms["triangulate_fuse"] = (time.perf_counter() - t_wb) * 1e3
+        with tracing.timed("map.writeback"):
+            if tri is not None:
+                created = self._tri_writeback(kf, tri[0], h["Xw"], h["tri_idx"], h["tri_ok"], v0)
+            if fuse is not None:
+                dsts, _, pts_list = fuse
+                fused = self._fuse_writeback(kf, pts_list, dsts, h["fuse_idx"], h["fuse_ok"], v0)
         return created, fused
 
     def _tri_writeback(self, kf, kns, Xw_b, idx2_b, ok_b, v0: int) -> int:
@@ -524,7 +519,6 @@ class LocalMapper:
         if sel is not None:
             out["sel"] = sel
         h = to_host(out)
-        t_wb = time.perf_counter()
         kfs, pts = a["kfs"], a["pts"]
         fixed = a["prob"]["kf_fixed"]
         if sel is not None:
@@ -533,7 +527,7 @@ class LocalMapper:
         else:
             st.ba_kfs = a["n_window"]
         obs_valid, obs_kf = a["prob"]["obs_valid"], a["prob"]["obs_kf"]
-        with s.lock:
+        with tracing.timed("map.writeback"), s.lock:
             if s.big_change_idx != v0:
                 # a loop correction moved the map during the solve: writing
                 # pre-correction poses back would undo it (the reference
@@ -552,7 +546,6 @@ class LocalMapper:
                 s.remove_observation(int(pts[pi]), int(kfs[obs_kf[pi, o]]))
         st.ba_cost = float(h["cost"])
         st.ba_points = int(pts.size)
-        self._writeback_ms["local_ba"] = (time.perf_counter() - t_wb) * 1e3
 
     # --------------------------------------------------------- KF culling
     def cull_keyframes(self, kf: int) -> int:

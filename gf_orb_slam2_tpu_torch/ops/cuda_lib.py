@@ -8,7 +8,8 @@ neither nvcc nor a GPU. The kernels' wrappers (`ops/hamming_cuda.py`,
 `ops/pose_lm_cuda.py`, `ops/greedy_select_cuda.py`) enqueue through
 `launch`, which counts each launch by kernel and by the launching thread's
 name (the pipelined System's workers are the threads named "mapping" and
-"loop"); the plain PyTorch versions never count.
+"loop") on the port's counters (utils/tracing.py, `launch.<kernel>`); the
+plain PyTorch versions never count.
 """
 from __future__ import annotations
 
@@ -21,8 +22,11 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Mapping
 
 import torch
+
+from gf_orb_slam2_tpu_torch.utils import tracing
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cu"))))
@@ -42,27 +46,42 @@ ENTRIES = {
     "greedy_select_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _P, _P],
 }
 
-# launches of each CUDA kernel by this process, in all and by thread name
-launch_counts = {"hamming_distance_matrix": 0, "hamming_masked_best2": 0,
-                 "pose_lm": 0, "greedy_select": 0}
-launch_counts_by_thread = {}
-_count_lock = threading.Lock()
+KERNELS = ("hamming_distance_matrix", "hamming_masked_best2", "pose_lm", "greedy_select")
 _load_lock = threading.Lock()
 _lib = None
 
 
+class _LaunchCounts(Mapping):
+    """Launches of each CUDA kernel by this process since the last reset: a
+    read-only view of the counters `launch.<kernel>` summed over threads."""
+
+    def __getitem__(self, name):
+        if name not in KERNELS:
+            raise KeyError(name)
+        return tracing.counters().get("launch." + name, 0)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self):
+        return len(KERNELS)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+launch_counts = _LaunchCounts()
+
+
 def reset_launch_counts():
-    with _count_lock:
-        for k in launch_counts:
-            launch_counts[k] = 0
-        launch_counts_by_thread.clear()
+    tracing.reset_counters("launch.")
 
 
 def thread_launch_counts(thread_name: str) -> dict:
     """Launches of each kernel by the threads of that name since the last
     reset."""
-    with _count_lock:
-        return dict(launch_counts_by_thread.get(thread_name, dict.fromkeys(launch_counts, 0)))
+    mine = tracing.counters(thread_name)
+    return {k: mine.get("launch." + k, 0) for k in KERNELS}
 
 
 def _find_nvcc() -> str:
@@ -170,11 +189,7 @@ def launch(name, entry, device, *args):
         err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
-    with _count_lock:
-        launch_counts[name] += 1
-        mine = launch_counts_by_thread.setdefault(
-            threading.current_thread().name, dict.fromkeys(launch_counts, 0))
-        mine[name] += 1
+    tracing.count("launch." + name)
 
 
 def launch_empty_kernel():

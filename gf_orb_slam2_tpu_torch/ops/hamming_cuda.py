@@ -37,8 +37,8 @@ import torch
 
 from gf_orb_slam2_tpu_torch.ops import cuda_lib
 from gf_orb_slam2_tpu_torch.ops.cuda_lib import (  # noqa: F401  (public names)
-    build, launch_counts, launch_counts_by_thread, launch_empty_kernel, load,
-    reset_launch_counts, thread_launch_counts,
+    build, launch_counts, launch_empty_kernel, load, reset_launch_counts,
+    thread_launch_counts,
 )
 
 MAX_DIST = 256

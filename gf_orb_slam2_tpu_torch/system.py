@@ -52,6 +52,7 @@ import json
 import os
 import queue
 import threading
+import time
 from collections import deque
 from typing import Optional
 
@@ -74,7 +75,8 @@ from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror
 from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
 from gf_orb_slam2_tpu_torch.tracking.tracker import Tracker, TrackState
-from gf_orb_slam2_tpu_torch.utils.transfer import to_device, to_host_async
+from gf_orb_slam2_tpu_torch.utils import tracing
+from gf_orb_slam2_tpu_torch.utils.transfer import to_device, to_host_async, upload
 
 MAPPING_THREAD = "mapping"  # name of the mapping worker's thread
 LOOP_THREAD = "loop"        # name of the loop worker's thread
@@ -124,7 +126,8 @@ class _Worker:
         return torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def submit(self, kf: int):
-        self._q.put(kf)
+        # the submit time travels with the KF: its wait in the queue is a span
+        self._q.put((kf, time.time_ns()))
 
     def queue_depth(self) -> int:
         return self._q.qsize()
@@ -179,11 +182,11 @@ class _MappingWorker(_Worker):
     def _run(self):
         stream = self._stream()
         while True:
-            kf = self._q.get()
-            if kf is None:
+            item = self._q.get()
+            if item is None:
                 self._q.task_done()
                 return
-            batch, stop = [kf], False
+            batch, stop = [item], False
             while True:
                 try:
                     nxt = self._q.get_nowait()
@@ -194,9 +197,12 @@ class _MappingWorker(_Worker):
                     break
                 batch.append(nxt)
             self.max_batch = max(self.max_batch, len(batch))
+            start = time.time_ns()
+            for k, t_submit in batch:
+                tracing.record("map.queued", t_submit, start, kf=k)
             try:
                 with self._work_lock:
-                    for i, k in enumerate(batch):
+                    for i, (k, _) in enumerate(batch):
                         last = i == len(batch) - 1
                         if stream is None:
                             self.sys._on_keyframe(k, skip_ba=not last)
@@ -233,10 +239,12 @@ class _LoopWorker(_Worker):
     def _run(self):
         stream = self._stream()
         while True:
-            kf = self._q.get()
-            if kf is None:
+            item = self._q.get()
+            if item is None:
                 self._q.task_done()
                 return
+            kf, t_submit = item
+            tracing.record("loop.queued", t_submit, time.time_ns(), kf=kf)
             try:
                 if stream is None:
                     self.sys.loop_closer.process_keyframe(kf)
@@ -314,22 +322,22 @@ class System:
     def track_stereo(self, im_left, im_right, timestamp: float) -> np.ndarray:
         """Reference: System::TrackStereo (System.cc:144) → 4x4 Tcw."""
         assert self.cfg.sensor == Sensor.STEREO
-        frame = self._build_stereo_frame(im_left, im_right, timestamp)
-        return self._track(frame)
+        with tracing.entry("frame", frame=self.frame_id):
+            return self._track(self._build_stereo_frame(im_left, im_right, timestamp))
 
     def track_rgbd(self, im, depth_map, timestamp: float) -> np.ndarray:
         """Reference: System::TrackRGBD (System.cc:214) → 4x4 Tcw. The depth
         map is in the units of `camera.depth_map_factor` (raw sensor values
         divided by it give metres; a factor of 0 or 1 takes them as metres)."""
         assert self.cfg.sensor == Sensor.RGBD
-        frame = self._build_rgbd_frame(im, depth_map, timestamp)
-        return self._track(frame)
+        with tracing.entry("frame", frame=self.frame_id):
+            return self._track(self._build_rgbd_frame(im, depth_map, timestamp))
 
     def track_monocular(self, im, timestamp: float) -> np.ndarray:
         """Reference: System::TrackMonocular (System.cc:282) → 4x4 Tcw."""
         assert self.cfg.sensor == Sensor.MONOCULAR
-        frame = self._build_mono_frame(im, timestamp)
-        return self._track(frame)
+        with tracing.entry("frame", frame=self.frame_id):
+            return self._track(self._build_mono_frame(im, timestamp))
 
     def track_stereo_pipelined(self, im_left, im_right, timestamp: float):
         """Streaming stereo tracking: submit this frame and return the list
@@ -389,24 +397,26 @@ class System:
         """Enqueue one streamed frame: mirror sync, the one upload, frontend,
         streaming step and the download of its results."""
         tr = self.tracker
-        # after the completions: points their keyframes created or moved are
-        # on the device before this step reads them
-        self.store.mirror.sync()
-        upload, pool_ids = tr.stream_prepare_upload(self.frame_id)
-        d = to_device(dict(imgs=np.stack([_to_u8(im_left), _to_u8(im_right)]), **upload),
-                      self.device)
-        out = self._frontend_stereo_impl(d["imgs"])
-        res = tr.stream_dispatch(out, d, self.frame_id)
-        frame = Frame.deferred(self.frame_id, timestamp, out)
-        self._inflight.append((frame, pool_ids, to_host_async(res)))
+        with tracing.span("stream.dispatch", frame=self.frame_id):
+            # after the completions: points their keyframes created or moved
+            # are on the device before this step reads them
+            self.store.mirror.sync()
+            host, pool_ids = tr.stream_prepare_upload(self.frame_id)
+            d = to_device(dict(imgs=np.stack([_to_u8(im_left), _to_u8(im_right)]), **host),
+                          self.device)
+            out = self._frontend_stereo_impl(d["imgs"])
+            res = tr.stream_dispatch(out, d, self.frame_id)
+            frame = Frame.deferred(self.frame_id, timestamp, out)
+            self._inflight.append((frame, pool_ids, to_host_async(res)))
         self.frame_id += 1
 
     def _complete_one(self):
         frame, pool_ids, pending = self._inflight.popleft()
-        st = self.tracker.stream_complete(frame, pending.wait(), pool_ids)
-        self._stream_pose(frame)
-        if st.created_kf and not self.cfg.localization_only:
-            self._keyframe_event(self.tracker.ref_kf)
+        with tracing.span("stream.complete", frame=frame.frame_id):
+            st = self.tracker.stream_complete(frame, pending.wait(), pool_ids)
+            self._stream_pose(frame)
+            if st.created_kf and not self.cfg.localization_only:
+                self._keyframe_event(self.tracker.ref_kf)
         return frame.frame_id, frame.pose_matrix()
 
     def _keyframe_event(self, kf: int):
@@ -432,6 +442,7 @@ class System:
             self.loop_closer.wait_gba()
         return done
 
+    @tracing.spanned("frame.wait_workers")
     def _wait_workers(self):
         if self._map_worker is not None:
             self._map_worker.wait_idle()
@@ -442,7 +453,8 @@ class System:
         """Feature-level entry (synthetic data, tests): a host Frame with its
         keypoint arrays filled, tracked as `track_stereo` tracks an image
         pair's frame. Returns its 4x4 Tcw."""
-        return self._track(frame)
+        with tracing.entry("frame", frame=frame.frame_id):
+            return self._track(frame)
 
     def _track(self, frame: Frame) -> np.ndarray:
         # the synchronous path reads the store without the workers' locking
@@ -576,6 +588,7 @@ class System:
         return (p(f.uv), p(f.octave), p(f.angle), p(f.desc), p(f.response),
                 p(f.valid, False))
 
+    @tracing.spanned("frontend.extract")
     def _frontend_stereo_impl(self, imgs):
         """imgs: [2,H,W] stacked (left, right) on the device → dict of the
         left frame's tensors keyed by tracking.frame.HOST_FIELDS. Both images
@@ -597,6 +610,7 @@ class System:
         assert set(out) == set(HOST_FIELDS)
         return out
 
+    @tracing.spanned("frontend.extract")
     def _frontend_mono_impl(self, im, depth_map=None):
         """im: [H,W] on the device (uint8 or float); depth_map: [H,W] or None
         → dict keyed by HOST_FIELDS. Without a depth map a keypoint has no
@@ -620,20 +634,23 @@ class System:
 
     def _build_rgbd_frame(self, im, depth_map, ts) -> Frame:
         # ONE upload: the uint8 image and the depth map
-        d = to_device(dict(im=_to_u8(im), depth=np.asarray(depth_map, np.float32)),
-                      self.device)
+        with tracing.span("frontend.upload"):
+            d = to_device(dict(im=_to_u8(im), depth=np.asarray(depth_map, np.float32)),
+                          self.device)
         return Frame.deferred(self.frame_id, ts, self._frontend_mono_impl(d["im"], d["depth"]))
 
     def _build_mono_frame(self, im, ts) -> Frame:
-        im = torch.from_numpy(_to_u8(im)).to(self.device)
+        with tracing.span("frontend.upload"):
+            im = upload(_to_u8(im), self.device)
         return Frame.deferred(self.frame_id, ts, self._frontend_mono_impl(im))
 
     def _build_stereo_frame(self, im_left, im_right, ts) -> Frame:
         # ONE upload for the image pair, as uint8 (cast on the device). The
         # frame's host arrays are fetched inside the tracker together with
         # the tracking results: one blocking sync per frame.
-        imgs = torch.from_numpy(np.stack([_to_u8(im_left), _to_u8(im_right)]))
-        out = self._frontend_stereo_impl(imgs.to(self.device))
+        with tracing.span("frontend.upload"):
+            imgs = upload(np.stack([_to_u8(im_left), _to_u8(im_right)]), self.device)
+        out = self._frontend_stereo_impl(imgs)
         frame = Frame.deferred(self.frame_id, ts, out)
         if self.cfg.charuco.enabled and self.state in (TrackState.NO_IMAGES_YET,
                                                        TrackState.NOT_INITIALIZED):

@@ -1,10 +1,17 @@
-"""Host↔device transfer helpers: one synchronization per batch of tensors."""
+"""Host↔device transfer helpers: one synchronization per batch of tensors.
+
+Every copy made here is counted on the calling thread (utils/tracing.py):
+`h2d.copies` / `h2d.bytes` for each host→device copy, `d2h.syncs` /
+`d2h.bytes` for each blocking download (`PendingHost.wait`), on any device.
+"""
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
 import torch
+
+from gf_orb_slam2_tpu_torch.utils import tracing
 
 
 class PendingHost:
@@ -18,6 +25,8 @@ class PendingHost:
     def wait(self) -> Dict[str, np.ndarray]:
         if self._event is not None:
             self._event.synchronize()
+        tracing.count("d2h.syncs")
+        tracing.count("d2h.bytes", sum(v.nbytes for v in self._bufs.values()))
         return {k: v.numpy() for k, v in self._bufs.items()}
 
 
@@ -69,14 +78,25 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     for off, a in offsets.values():
         flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
     dev = host.to(device, non_blocking=True)
+    tracing.count("h2d.copies")
+    tracing.count("h2d.bytes", total)
     return {k: dev[off:off + a.nbytes].view(_TORCH_DTYPE[a.dtype]).reshape(a.shape)
             for k, (off, a) in offsets.items()}
+
+
+def upload(a, device) -> torch.Tensor:
+    """One host array (numpy or a CPU tensor) → a tensor on `device`, in one
+    counted copy."""
+    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    tracing.count("h2d.copies")
+    tracing.count("h2d.bytes", t.nbytes)
+    return t.to(device)
 
 
 def desc_to_torch(desc: np.ndarray, device) -> torch.Tensor:
     """Host descriptors (numpy uint32 words) → int32 tensor with the same
     bits on `device`."""
-    return torch.from_numpy(np.ascontiguousarray(desc).view(np.int32)).to(device)
+    return upload(np.ascontiguousarray(desc).view(np.int32), device)
 
 
 def desc_to_numpy(desc: np.ndarray) -> np.ndarray:
