@@ -76,7 +76,8 @@ from gf_orb_slam2_tpu_torch.slammap.store import MapStore
 from gf_orb_slam2_tpu_torch.tracking.frame import HOST_FIELDS, Frame
 from gf_orb_slam2_tpu_torch.tracking.tracker import Tracker, TrackState
 from gf_orb_slam2_tpu_torch.utils import tracing
-from gf_orb_slam2_tpu_torch.utils.transfer import to_device, to_host_async, upload
+from gf_orb_slam2_tpu_torch.utils.cuda_graph import GraphCache
+from gf_orb_slam2_tpu_torch.utils.transfer import to_device, to_host_async
 
 MAPPING_THREAD = "mapping"  # name of the mapping worker's thread
 LOOP_THREAD = "loop"        # name of the loop worker's thread
@@ -317,6 +318,8 @@ class System:
                 cam.right_K, cam.right_D, cam.right_R, cam.right_P, cam.fisheye,
                 self.device)
         self._pin = cam_mod.PinholeCamera.from_config(cam, self.device)
+        # the frontend's captured CUDA graphs, one per input signature
+        self._frontend_graphs = GraphCache("frontend")
 
     # ------------------------------------------------------------ tracking
     def track_stereo(self, im_left, im_right, timestamp: float) -> np.ndarray:
@@ -404,7 +407,11 @@ class System:
             host, pool_ids = tr.stream_prepare_upload(self.frame_id)
             d = to_device(dict(imgs=np.stack([_to_u8(im_left), _to_u8(im_right)]), **host),
                           self.device)
-            out = self._frontend_stereo_impl(d["imgs"])
+            # the eager body, not the frontend's graph: with frames in flight
+            # this driver's pace is not its enqueue, and the graph here left
+            # the mapping worker further behind the stream (PERF.md §6, §7)
+            with tracing.span("frontend.extract"):
+                out = self._frontend_stereo_body(d["imgs"])
             res = tr.stream_dispatch(out, d, self.frame_id)
             frame = Frame.deferred(self.frame_id, timestamp, out)
             self._inflight.append((frame, pool_ids, to_host_async(res)))
@@ -592,7 +599,12 @@ class System:
     def _frontend_stereo_impl(self, imgs):
         """imgs: [2,H,W] stacked (left, right) on the device → dict of the
         left frame's tensors keyed by tracking.frame.HOST_FIELDS. Both images
-        go through ONE batched extraction."""
+        go through ONE batched extraction. On a CUDA device each input
+        signature's first call is captured and later calls replay it
+        (utils/cuda_graph.py): the same kernels in one launch."""
+        return self._frontend_graphs.run("stereo", self._frontend_stereo_body, imgs)
+
+    def _frontend_stereo_body(self, imgs):
         imgs = imgs.to(torch.float32)
         uv, octv, ang, desc, resp, val = self._pad_feats(self.extractor.extract_batch(imgs))
         if self._rectify_left is not None:
@@ -615,7 +627,11 @@ class System:
         """im: [H,W] on the device (uint8 or float); depth_map: [H,W] or None
         → dict keyed by HOST_FIELDS. Without a depth map a keypoint has no
         right coordinate and no depth (-1); with one, both come from the depth
-        at the rounded keypoint (matching/stereo.depth_to_disparity)."""
+        at the rounded keypoint (matching/stereo.depth_to_disparity). Captured
+        and replayed on a CUDA device as `_frontend_stereo_impl` is."""
+        return self._frontend_graphs.run("mono", self._frontend_mono_body, im, depth_map)
+
+    def _frontend_mono_body(self, im, depth_map):
         f = self._pad_feats(self.extractor.extract_batch(im[None]))
         uv, octv, ang, desc, resp, valid = (a[0] for a in f)
         if any(self.cfg.camera.dist):
@@ -633,15 +649,16 @@ class System:
                     valid=valid, u_right=ur, depth=dep)
 
     def _build_rgbd_frame(self, im, depth_map, ts) -> Frame:
-        # ONE upload: the uint8 image and the depth map
+        # ONE upload: the uint8 image and the depth map, straight into the
+        # frontend graph's inputs once its signature is captured
         with tracing.span("frontend.upload"):
-            d = to_device(dict(im=_to_u8(im), depth=np.asarray(depth_map, np.float32)),
-                          self.device)
-        return Frame.deferred(self.frame_id, ts, self._frontend_mono_impl(d["im"], d["depth"]))
+            im, depth = self._frontend_graphs.upload(
+                "mono", self.device, _to_u8(im), np.asarray(depth_map, np.float32))
+        return Frame.deferred(self.frame_id, ts, self._frontend_mono_impl(im, depth))
 
     def _build_mono_frame(self, im, ts) -> Frame:
         with tracing.span("frontend.upload"):
-            im = upload(_to_u8(im), self.device)
+            im, _ = self._frontend_graphs.upload("mono", self.device, _to_u8(im), None)
         return Frame.deferred(self.frame_id, ts, self._frontend_mono_impl(im))
 
     def _build_stereo_frame(self, im_left, im_right, ts) -> Frame:
@@ -649,7 +666,8 @@ class System:
         # frame's host arrays are fetched inside the tracker together with
         # the tracking results: one blocking sync per frame.
         with tracing.span("frontend.upload"):
-            imgs = upload(np.stack([_to_u8(im_left), _to_u8(im_right)]), self.device)
+            imgs, = self._frontend_graphs.upload(
+                "stereo", self.device, np.stack([_to_u8(im_left), _to_u8(im_right)]))
         out = self._frontend_stereo_impl(imgs)
         frame = Frame.deferred(self.frame_id, ts, out)
         if self.cfg.charuco.enabled and self.state in (TrackState.NO_IMAGES_YET,

@@ -21,7 +21,8 @@ the always-on records (`LocalMapper.event_ms`, `LoopCloser.event_ms`,
 `RelocStats.ms`, `Tracker.init_stats`). Its `kids` sums its direct
 children's nanoseconds by name. `entry(name, **attrs)` is the span of a
 public entry: it also stores the calling thread's counter deltas over the
-call (`uploads`, `upload_bytes`, `syncs`, `download_bytes`, `launches`).
+call (`uploads`, `upload_bytes`, `syncs`, `download_bytes`, `graph_replays`,
+`launches`).
 
 The clock is torch.profiler's: Unix-epoch nanoseconds (`time.time_ns()`),
 so a span lies directly over the profiler's device events. A span inherits
@@ -30,8 +31,10 @@ so a span lies directly over the profiler's device events. A span inherits
 Counters. `count(name, n)` adds to an integer counter of the calling
 thread's name; they are always on. The port counts host→device copies
 (`h2d.copies`, `h2d.bytes`: utils/transfer.py), blocking downloads
-(`d2h.syncs`, `d2h.bytes`) and hand-kernel launches (`launch.<kernel>`:
-ops/cuda_lib.py).
+(`d2h.syncs`, `d2h.bytes`), hand-kernel launches (`launch.<kernel>`:
+ops/cuda_lib.py; a replayed CUDA graph adds the launches of its capture) and
+the frontend's CUDA graphs (`frontend.graph_captures`,
+`frontend.graph_replays`: utils/cuda_graph.py).
 
 Read the spans with `spans()` (a copy) and empty the buffer with `clear()`.
 """
@@ -251,7 +254,8 @@ def clear():
 
 # ------------------------------------------------------------------ counters
 _DELTAS = (("uploads", "h2d.copies"), ("upload_bytes", "h2d.bytes"),
-           ("syncs", "d2h.syncs"), ("download_bytes", "d2h.bytes"))
+           ("syncs", "d2h.syncs"), ("download_bytes", "d2h.bytes"),
+           ("graph_replays", "frontend.graph_replays"))
 
 
 def count(name: str, n: int = 1):

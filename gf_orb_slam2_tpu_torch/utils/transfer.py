@@ -62,26 +62,45 @@ _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch
                 np.dtype(np.uint8): torch.uint8}
 
 
-def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+def torch_dtype(dtype) -> torch.dtype:
+    """The dtype a host array of numpy `dtype` has on the device after
+    `to_device` (uint32 words as int32 with the same bits)."""
+    return _TORCH_DTYPE[np.dtype(dtype)]
+
+
+def packed_offsets(nbytes):
+    """Byte offsets of buffers of `nbytes` each packed one after another at
+    16-byte alignment, and the packed total: the layout of `to_device`."""
+    offsets, total = [], 0
+    for n in nbytes:
+        offsets.append(total)
+        total += -(-n // 16) * 16
+    return offsets, total
+
+
+def to_device(arrays: Dict[str, np.ndarray], device, out=None) -> Dict[str, torch.Tensor]:
     """Upload a dict of numpy arrays in ONE host→device copy: they are packed
-    (16-byte aligned) into one buffer — pinned when the target is a CUDA
+    (`packed_offsets`) into one buffer — pinned when the target is a CUDA
     device — copied asynchronously, and viewed on the device as tensors of
-    their own dtype and shape (uint32 words as int32 with the same bits)."""
+    their own dtype and shape (uint32 words as int32 with the same bits).
+    `out`, a flat uint8 device buffer of at least the packed size, receives
+    the copy instead of a new buffer."""
     device = torch.device(device)
-    offsets, total = {}, 0
-    for k, a in arrays.items():
-        a = np.ascontiguousarray(a).reshape(np.shape(a))  # 0-d arrays stay 0-d
-        offsets[k] = (total, a)
-        total += -(-a.nbytes // 16) * 16
+    arrays = {k: np.ascontiguousarray(a).reshape(np.shape(a))  # 0-d arrays stay 0-d
+              for k, a in arrays.items()}
+    offsets, total = packed_offsets(a.nbytes for a in arrays.values())
     host = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
     flat = host.numpy()
-    for off, a in offsets.values():
+    for off, a in zip(offsets, arrays.values()):
         flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev = host.to(device, non_blocking=True)
+    if out is None:
+        dev = host.to(device, non_blocking=True)
+    else:
+        dev = out[:total].copy_(host, non_blocking=True)
     tracing.count("h2d.copies")
     tracing.count("h2d.bytes", total)
-    return {k: dev[off:off + a.nbytes].view(_TORCH_DTYPE[a.dtype]).reshape(a.shape)
-            for k, (off, a) in offsets.items()}
+    return {k: dev[off:off + a.nbytes].view(torch_dtype(a.dtype)).reshape(a.shape)
+            for off, (k, a) in zip(offsets, arrays.items())}
 
 
 def upload(a, device) -> torch.Tensor:

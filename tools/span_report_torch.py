@@ -21,7 +21,11 @@ result line, and writes a JSON report over the traced part of the window
   range (ns), and dispatch + fetch + host against the step;
 - `owners`: the costliest device operations, each split by the span that
   launched it (the kernel's launch call, found by its correlation id, under
-  the innermost profiler range open on the launching thread).
+  the innermost profiler range open on the launching thread);
+- `frame_counters`: the counter deltas each `frame` span carries (uploads,
+  bytes, syncs, the frontend's graph replays, hand-kernel launches), per
+  frame; `graph_counters`: the process's `frontend.graph_captures` and
+  `frontend.graph_replays` (utils/cuda_graph.py) at the run's end.
 
 `--trace 0` runs the cell without the profiler, with the spans on through
 `tracing.enable()` for the whole run, and reports the window's frames span
@@ -223,6 +227,11 @@ def main(argv=None):
         "spans_ms_per_frame": table,
         "workers": workers(spans, t0, t1, main_thread),
         "self_share": {n: table[n][1] / table[n][0] for n in ("frame", "track.step")},
+        "frame_counters": {k: sum(f.attrs[k] for f in frames) / len(frames)
+                           for k in sorted(frames[0].attrs) if k != "frame"
+                           and all(k in f.attrs for f in frames)},
+        "graph_counters": {k: v for k, v in sorted(tracing.counters().items())
+                           if k.startswith("frontend.graph")},
     })
     if t is not None:
         steps = program.inside(frames, spans, "track.step")
@@ -244,7 +253,8 @@ def main(argv=None):
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({k: report.get(k) for k in (
-        "frames_spanned", "latency", "self_share", "checks", "idle_by_span", "span_cost")}),
+        "frames_spanned", "latency", "self_share", "frame_counters", "graph_counters", "checks",
+        "idle_by_span", "span_cost")}),
         flush=True)
     return 0 if result["correct"] and not loaded else 1
 
