@@ -66,9 +66,11 @@ void mih_clear(void* ptr) {
     for (auto& b : h->buckets) b.ids.clear();
 }
 
-// Insert `n` descriptors (uint32[n][8]) with their ids.
-void mih_insert(void* ptr, const uint32_t* desc, const int32_t* ids, int n) {
+// Insert `n` descriptors (uint32[n][8]) with their ids. Returns how many
+// entries were evicted from full buckets to make room.
+int mih_insert(void* ptr, const uint32_t* desc, const int32_t* ids, int n) {
     MIH* h = static_cast<MIH*>(ptr);
+    int evicted = 0;
     for (int i = 0; i < n; ++i) {
         const uint32_t* d = desc + 8 * i;
         int32_t id = ids[i];
@@ -77,11 +79,14 @@ void mih_insert(void* ptr, const uint32_t* desc, const int32_t* ids, int n) {
             Bucket& b = h->buckets[static_cast<size_t>(t) * h->n_buckets + key];
             // latest-entry dedup (reference: Bucket dedup, Hashing.cc:105-330)
             if (!b.ids.empty() && b.ids.back() == id) continue;
-            if (static_cast<int>(b.ids.size()) >= h->max_bucket)
+            if (static_cast<int>(b.ids.size()) >= h->max_bucket) {
                 b.ids.erase(b.ids.begin());  // evict oldest
+                ++evicted;
+            }
             b.ids.push_back(id);
         }
     }
+    return evicted;
 }
 
 // Remove an id from every bucket it appears in (point culled/replaced).

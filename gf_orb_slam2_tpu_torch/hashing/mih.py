@@ -81,7 +81,7 @@ def load() -> ctypes.CDLL:
         lib.mih_destroy.argtypes = [vp]
         lib.mih_clear.restype = None
         lib.mih_clear.argtypes = [vp]
-        lib.mih_insert.restype = None
+        lib.mih_insert.restype = i32
         lib.mih_insert.argtypes = [vp, u32p, s32p, i32]
         lib.mih_erase.restype = None
         lib.mih_erase.argtypes = [vp, ctypes.c_int32]
@@ -131,12 +131,14 @@ class MultiIndexHashing:
         if h:
             self._lib.mih_destroy(h)
 
-    def insert(self, desc: np.ndarray, ids: np.ndarray):
+    def insert(self, desc: np.ndarray, ids: np.ndarray) -> int:
+        """Insert points [N,8] under their ids; returns how many bucket
+        entries were evicted (oldest first) to make room."""
         desc = _descriptors(desc)
         ids = np.ascontiguousarray(ids, np.int32)
         if ids.shape != (len(desc),):
             raise ValueError(f"{len(desc)} descriptors but ids of shape {ids.shape}")
-        self._lib.mih_insert(self._h, _u32ptr(desc), _i32ptr(ids), len(ids))
+        return int(self._lib.mih_insert(self._h, _u32ptr(desc), _i32ptr(ids), len(ids)))
 
     def erase(self, point_id: int):
         self._lib.mih_erase(self._h, int(point_id))

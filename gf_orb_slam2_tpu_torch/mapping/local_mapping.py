@@ -220,7 +220,9 @@ class LocalMapper:
             with tracing.timed("map.cull") as cull:
                 st.n_culled_kfs = self.cull_keyframes(kf)
             with tracing.timed("map.hash") as hashing:
-                self.update_hash_tables(kf)
+                if self.mih is not None:
+                    inserted, evicted = self.update_hash_tables(kf)
+                    hashing.set(inserted=inserted, evicted=evicted)
         # a stage's own time leaves out its write-back (its one child span)
         self.event_ms.append({
             "refresh": refresh.ms, "triangulate_fuse": tri.self_ms, "local_ba": ba.self_ms,
@@ -562,16 +564,16 @@ class LocalMapper:
         """Insert this KF's (possibly new/updated) points into the MIH tables,
         then re-select the active tables (reference: UpdateHashTables
         LocalMapping.cc:948). Runs with store.lock held: tracking queries the
-        same tables."""
+        same tables. Returns (points inserted, bucket entries evicted)."""
         mih = self.mih
-        if mih is None:
-            return
         s = self.store
+        evicted = 0
         with s.lock:
             pts = s.kf_point[kf]
             pts = np.unique(pts[pts >= 0])
             pts = pts[s.point_valid[pts]]
             if pts.size:
-                mih.insert(s.point_desc[pts], pts.astype(np.int32))
+                evicted = mih.insert(s.point_desc[pts], pts.astype(np.int32))
             if self.cfg.hashing.online_table_selection:
                 mih.update_table_selection()
+        return int(pts.size), evicted

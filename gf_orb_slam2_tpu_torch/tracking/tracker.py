@@ -687,7 +687,7 @@ class Tracker:
         has = frame.mp_ids >= 0
         if not has.any():
             return
-        with self.store.lock:
+        with tracing.span("track.hash_scores"), self.store.lock:
             self.mih.update_query_scores(
                 frame.desc[has], self.store.point_desc[frame.mp_ids[has]])
 
@@ -1024,19 +1024,32 @@ class Tracker:
             and s.n_points > self.cfg.hashing.map_size_trigger
             and mode in (LocalMapMode.HASH_ONLY, LocalMapMode.COMBINED)
         )
-        if use_hash:
+        if not use_hash:
+            return self._cap_pool(np.unique(s.kf_point[kfs]))
+        desc = frame.desc[frame.valid]
+        with tracing.span("track.hash", queried=len(desc),
+                          budget=self.mih.candidate_budget) as sp:
             with s.lock:  # the mapping worker inserts into the same tables
-                hpts = self.mih.query(frame.desc[frame.valid])
-                hpts = hpts[(hpts >= 0) & (hpts < s.point_valid.shape[0])]
+                cand = self.mih.query(desc)
+                hpts = cand[(cand >= 0) & (cand < s.point_valid.shape[0])]
                 hpts = hpts[s.point_valid[hpts]]
                 self.mih.update_dynamics(len(hpts))
             if mode == LocalMapMode.HASH_ONLY:
-                pts = np.unique(hpts)
+                cpts = hpts[:0]
             else:
                 cpts = np.unique(s.kf_point[kfs])
-                pts = np.unique(np.concatenate([cpts[cpts >= 0], hpts]))
-        else:
-            pts = np.unique(s.kf_point[kfs])
+                cpts = cpts[cpts >= 0]
+            pts = self._cap_pool(np.unique(np.concatenate([cpts, hpts])))
+            added = int(pts.size - np.count_nonzero(np.isin(pts, cpts, assume_unique=True)))
+            sp.set(candidates=len(cand), added=added)
+        tracing.count("hash.candidates", len(cand))
+        tracing.count("hash.added", added)
+        return pts
+
+    def _cap_pool(self, pts):
+        """The valid points of `pts` (sorted ids, -1 for none); past
+        `max_local_points`, the most-observed of them."""
+        s = self.store
         pts = pts[pts >= 0]
         pts = pts[s.point_valid[pts]]
         L = self.cfg.capacity.max_local_points

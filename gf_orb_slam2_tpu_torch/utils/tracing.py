@@ -22,7 +22,9 @@ the always-on records (`LocalMapper.event_ms`, `LoopCloser.event_ms`,
 children's nanoseconds by name. `entry(name, **attrs)` is the span of a
 public entry: it also stores the calling thread's counter deltas over the
 call (`uploads`, `upload_bytes`, `syncs`, `download_bytes`, `graph_replays`,
-`launches`).
+`launches`, and the hashed local map's `hash_candidates` and `hash_added`).
+`set(**attrs)` adds attributes known only at a span's end (off, it does
+nothing).
 
 The clock is torch.profiler's: Unix-epoch nanoseconds (`time.time_ns()`),
 so a span lies directly over the profiler's device events. A span inherits
@@ -32,9 +34,11 @@ Counters. `count(name, n)` adds to an integer counter of the calling
 thread's name; they are always on. The port counts host→device copies
 (`h2d.copies`, `h2d.bytes`: utils/transfer.py), blocking downloads
 (`d2h.syncs`, `d2h.bytes`), hand-kernel launches (`launch.<kernel>`:
-ops/cuda_lib.py; a replayed CUDA graph adds the launches of its capture) and
+ops/cuda_lib.py; a replayed CUDA graph adds the launches of its capture),
 the frontend's CUDA graphs (`frontend.graph_captures`,
-`frontend.graph_replays`: utils/cuda_graph.py).
+`frontend.graph_replays`: utils/cuda_graph.py) and the hashed local map's
+work (`hash.candidates`, the ids the tables returned, and `hash.added`, the
+pool points only the hash gave: tracking/tracker.py).
 
 Read the spans with `spans()` (a copy) and empty the buffer with `clear()`.
 """
@@ -145,6 +149,10 @@ class Span:
             _record(self)
         return False
 
+    def set(self, **attrs):
+        """Add attributes known only at the span's end."""
+        self.attrs.update(attrs)
+
     @property
     def ms(self) -> float:
         return (self.end_ns - self.start_ns) / 1e6
@@ -172,6 +180,9 @@ class _Off:
 
     def __exit__(self, *exc):
         return False
+
+    def set(self, **attrs):
+        pass
 
 
 _OFF = _Off()
@@ -255,7 +266,8 @@ def clear():
 # ------------------------------------------------------------------ counters
 _DELTAS = (("uploads", "h2d.copies"), ("upload_bytes", "h2d.bytes"),
            ("syncs", "d2h.syncs"), ("download_bytes", "d2h.bytes"),
-           ("graph_replays", "frontend.graph_replays"))
+           ("graph_replays", "frontend.graph_replays"),
+           ("hash_candidates", "hash.candidates"), ("hash_added", "hash.added"))
 
 
 def count(name: str, n: int = 1):

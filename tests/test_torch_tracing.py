@@ -405,3 +405,99 @@ def test_loop_closer_event_ms_is_its_spans_durations():
         if st.corrected:
             assert all(row[k] > 0 for k in STAGES)
             assert any(s.name == "gba.run" and s.attrs["kf"] == st.kf for s in sp)
+
+
+# ------------------------------------------------------ the hashed local map
+@pytest.fixture(scope="module")
+def traced_hashed_rgbd():
+    """tests/test_torch_mih_plain.py's hashed RGB-D run (COMBINED past 300
+    points, buckets of 3) through `track_rgbd` with the mapping worker on,
+    tracing on and the hash's native calls recorded."""
+    from tests.test_torch_mih_plain import hashed_rgbd_config, sideways_rgbd_frames
+    from tools.mih_replay_torch import recording
+
+    with recording() as made:
+        slam = System(hashed_rgbd_config(async_mapping=True), device="cpu")
+    tracing.clear()
+    tracing.enable()
+    try:
+        for i, (im, depth) in enumerate(sideways_rgbd_frames(12)):
+            slam.track_rgbd(im, depth, i / 30.0)
+        slam.flush_pipeline()
+    finally:
+        tracing.disable()
+    sp = tracing.spans()
+    slam.shutdown()
+    (mih, calls), = made
+    return slam, sp, mih, calls
+
+
+def test_hash_spans_on_every_frame_past_the_trigger(traced_hashed_rgbd):
+    slam, sp, mih, calls = traced_hashed_rgbd
+    ids = {s.id: s for s in sp}
+    frames = [s for s in sp if s.name == "frame"]
+    hashed = [s for s in sp if s.name == "track.hash"]
+    scores = [s for s in sp if s.name == "track.hash_scores"]
+    assert len(hashed) == mih.n_queries == sum(c[0] == "query" for c in calls)
+    by_frame = {}
+    for s in hashed + scores:
+        top = s
+        while top.parent is not None:
+            top = ids[top.parent]
+        assert top.name == "frame" and top.attrs["frame"] == s.attrs["frame"]
+        by_frame.setdefault(s.name, []).append(s.attrs["frame"])
+    # from the first frame past the trigger on, each frame queries and scores
+    first = min(by_frame["track.hash"])
+    later = [f.attrs["frame"] for f in frames if f.attrs["frame"] >= first]
+    assert len(later) >= 10
+    assert set(by_frame["track.hash"]) == set(by_frame["track.hash_scores"]) == set(later)
+    queries = [c for c in calls if c[0] == "query"]
+    for s, q in zip(hashed, queries):
+        assert set(s.attrs) == {"frame", "queried", "candidates", "added", "budget"}
+        assert s.attrs["queried"] == len(q[1]) and s.attrs["budget"] == q[4]
+        assert s.attrs["candidates"] == len(q[6])
+        assert ids[s.parent].name in ("track.local_pool", "track.local_map")
+    assert sum(s.attrs["added"] > 0 for s in hashed) >= 3
+
+
+def test_frame_spans_carry_the_hash_counters(traced_hashed_rgbd):
+    slam, sp, mih, calls = traced_hashed_rgbd
+    ids = {s.id: s for s in sp}
+    want = {}
+    for s in sp:
+        if s.name == "track.hash":
+            top = s
+            while top.parent is not None:
+                top = ids[top.parent]
+            got = want.setdefault(top.id, [0, 0])
+            got[0] += s.attrs["candidates"]
+            got[1] += s.attrs["added"]
+    for f in (s for s in sp if s.name == "frame"):
+        assert [f.attrs["hash_candidates"], f.attrs["hash_added"]] == want.get(f.id, [0, 0])
+    assert sum(f.attrs["hash_added"] for f in sp if f.name == "frame") > 0
+
+
+def test_map_hash_carries_the_plain_hashs_counts(traced_hashed_rgbd):
+    from tests.plain_mih import PlainMIH
+
+    slam, sp, mih, calls = traced_hashed_rgbd
+    events = [s for s in sp if s.name == "map.hash"]
+    assert len(events) == len(slam.mapper.event_ms) >= 3
+    assert all(s.thread == MAPPING_THREAD for s in events)
+    ref = PlainMIH(mih.cfg.n_tables, mih.cfg.bits_per_substring, mih.cfg.max_bucket_size)
+    plain = [(len(c[2]), ref.insert(c[1], c[2])) for c in calls if c[0] == "insert"]
+    # the mapper is the only inserter, one insert an event with points
+    assert [(s.attrs["inserted"], s.attrs["evicted"]) for s in events
+            if s.attrs["inserted"]] == plain
+    assert sum(e for _, e in plain) > 0
+
+
+def test_no_hash_spans_or_counts_with_hashing_off(traced_rgbd):
+    slam, frames, sp = traced_rgbd
+    assert slam.tracker.mih is None
+    assert not [s for s in sp if s.name in ("track.hash", "track.hash_scores")]
+    for f in (s for s in sp if s.name == "frame"):
+        assert f.attrs["hash_candidates"] == f.attrs["hash_added"] == 0
+    hashes = [s for s in sp if s.name == "map.hash"]
+    assert hashes and all("inserted" not in s.attrs and "evicted" not in s.attrs
+                          for s in hashes)

@@ -25,7 +25,12 @@ result line, and writes a JSON report over the traced part of the window
 - `frame_counters`: the counter deltas each `frame` span carries (uploads,
   bytes, syncs, the frontend's graph replays, hand-kernel launches), per
   frame; `graph_counters`: the process's `frontend.graph_captures` and
-  `frontend.graph_replays` (utils/cuda_graph.py) at the run's end.
+  `frontend.graph_replays` (utils/cuda_graph.py) at the run's end;
+- `hash` (a cell with hashing on): the frames with a `track.hash` span, the
+  queries and their attributes (descriptors queried, candidates the tables
+  returned, pool points only the hash gave, the candidate budget) a frame,
+  `track.hash` / `track.hash_scores` ms a frame, and the mapping worker's
+  `map.hash` events (count, mean ms, points inserted, entries evicted).
 
 `--trace 0` runs the cell without the profiler, with the spans on through
 `tracing.enable()` for the whole run, and reports the window's frames span
@@ -34,6 +39,7 @@ host µs of one span: off, on through `enable()`, and under a recording
 profiler.
 """
 import argparse
+import bisect
 import json
 import os
 import statistics
@@ -76,12 +82,38 @@ def workers(spans, t0, t1, main):
     return {t: {n: [len(v), sum(v) / len(v)] for n, v in d.items()} for t, d in acc.items()}
 
 
+def hash_summary(spans, frames, t0, t1):
+    """The hashed local map over the frames, and the mapper's `map.hash`
+    events ending in [t0, t1]; None where no frame queried the hash."""
+    from slambench.core import program
+
+    queries = program.inside(frames, spans, "track.hash")
+    if not queries:
+        return None
+    scores = program.inside(frames, spans, "track.hash_scores")
+    starts = sorted(f.start_ns for f in frames)
+    hashed = {starts[max(0, bisect.bisect_right(starts, q.start_ns) - 1)] for q in queries}
+    n = len(frames)
+    out = {"frames": n, "frames_with_query": len(hashed), "queries_per_frame": len(queries) / n,
+           "ms_per_frame": {name: sum(x.end_ns - x.start_ns for x in mine) / 1e6 / n
+                            for name, mine in (("track.hash", queries),
+                                               ("track.hash_scores", scores))}}
+    for k in ("queried", "candidates", "added", "budget"):
+        out[k + "_per_query"] = sum(q.attrs[k] for q in queries) / len(queries)
+    events = [s for s in spans if s.name == "map.hash" and t0 <= s.end_ns <= t1]
+    out["map_hash"] = {"events": len(events)}
+    if events:
+        out["map_hash"].update(
+            ms_mean=sum(e.end_ns - e.start_ns for e in events) / 1e6 / len(events),
+            inserted=sum(e.attrs.get("inserted", 0) for e in events),
+            evicted=sum(e.attrs.get("evicted", 0) for e in events))
+    return out
+
+
 def match_ranges(mine, ranges, inside_only=False):
     """Each span against the benchmark range nearest its start: the largest
     |start - start| and |end - end| (ns), or for `inside_only` how many spans
     lie inside their range."""
-    import bisect
-
     ranges = sorted(ranges)
     starts = [r[0] for r in ranges]
     d_start = d_end = n_in = 0
@@ -100,8 +132,6 @@ def owners(events, range_names, top=12):
     """The `top` device operations by summed time, each split by the
     innermost profiler range (of `range_names`) around its launch call:
     [{op, s, by_range: {range: s}}]."""
-    import bisect
-
     from torch.autograd import DeviceType
 
     from slambench.core import program, trace
@@ -232,6 +262,7 @@ def main(argv=None):
                            and all(k in f.attrs for f in frames)},
         "graph_counters": {k: v for k, v in sorted(tracing.counters().items())
                            if k.startswith("frontend.graph")},
+        "hash": hash_summary(spans, frames, t0, t1),
     })
     if t is not None:
         steps = program.inside(frames, spans, "track.step")
@@ -253,8 +284,8 @@ def main(argv=None):
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({k: report.get(k) for k in (
-        "frames_spanned", "latency", "self_share", "frame_counters", "graph_counters", "checks",
-        "idle_by_span", "span_cost")}),
+        "frames_spanned", "latency", "self_share", "frame_counters", "graph_counters", "hash",
+        "checks", "idle_by_span", "span_cost")}),
         flush=True)
     return 0 if result["correct"] and not loaded else 1
 
