@@ -98,7 +98,7 @@ good-graph trigger (a window above `good_graph.kf_thres` KFs) fired, the
 per-call mean, median and p90, and `prewarm_s`, beside the card's nvidia-smi
 name and power limit.
 
-Phase `lm_select` holds kernels 2 and 3 against their plain versions on
+Phase `lm_select` holds kernels 2, 3 and 4 against their plain versions on
 the inputs the paths gave them: the main path's last motion-model and
 local-map solves and the accepted relocalization's LM polish (R and t within
 1e-2 — the measured level of an LM step taken differently at a cost plateau,
@@ -106,10 +106,15 @@ with headroom —, inliers exact; no valid point, every point behind the camera,
 non-finite point), the main path's last selection (D = 7) and the hybrid
 phase's (D = 13) on the same uniforms (the same picks, or near-ties within
 0.02 and the objective within 1e-3), and a synthetic pool at the selection
-kernel's cap on P (16,384 slots) at D = 7 and 13. Every path is gated on
-its own kernels having launched: the pose LM on every tracking path and once
-per solved relocalization candidate, the selection on every good-feature
-path.
+kernel's cap on P (16,384 slots) at D = 7 and 13; and kernel 4, the
+selection's information matrices, on the main path's last 8 selections'
+inputs (the pool's matrices and the base bit for bit the plain version's, a
+rerun bit for bit, the same picks on both sets), timed beside the plain
+chain's device time, device kernels and
+host enqueue. Every path is gated on its own
+kernels having launched: the pose LM on every tracking path and once per
+solved relocalization candidate, the selection on every good-feature path,
+kernel 4 on every fused frame of the main path.
 
 Each phase prints one JSON line; any failed phase ends the run with a
 non-zero exit code. The last line is {"ok": true, "device": {...}} and is
@@ -150,14 +155,14 @@ from gf_orb_slam2_tpu_torch.loopclosing.sim3solver import optimize_sim3, solve_s
 from gf_orb_slam2_tpu_torch.mapping import local_mapping  # noqa: E402
 from gf_orb_slam2_tpu_torch.matching import hamming as hamming_mod, matcher  # noqa: E402
 from gf_orb_slam2_tpu_torch.ops import cuda_lib, greedy_select_cuda, hamming_cuda  # noqa: E402
-from gf_orb_slam2_tpu_torch.ops import pose_lm_cuda  # noqa: E402
+from gf_orb_slam2_tpu_torch.ops import obs_info_cuda, pose_lm_cuda  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim import global_ba  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.local_ba import (  # noqa: E402
     LocalBAProblem, local_bundle_adjustment,
 )
 from gf_orb_slam2_tpu_torch.optim import pose_opt  # noqa: E402
 from gf_orb_slam2_tpu_torch.optim.pose_graph import PoseGraphProblem, optimize_pose_graph  # noqa: E402
-from gf_orb_slam2_tpu_torch.selection import good_feature  # noqa: E402
+from gf_orb_slam2_tpu_torch.selection import good_feature, observability  # noqa: E402
 from gf_orb_slam2_tpu_torch.slammap.device_mirror import DeviceMapMirror  # noqa: E402
 from gf_orb_slam2_tpu_torch.system import LOOP_THREAD, MAPPING_THREAD, System  # noqa: E402
 from gf_orb_slam2_tpu_torch.tracking import pnp, tracker as tracker_mod  # noqa: E402
@@ -223,15 +228,17 @@ INT8_TENSOR_OPS_PER_S = 1979e12  # the data sheet lists no 1-bit rate; int8 is t
 POPC_PER_CLOCK_PER_SM = 16       # NVIDIA's CUDA C++ programming manual, arithmetic throughput, cc 9.0
 
 MATRIX, BEST2 = "hamming_distance_matrix", "hamming_masked_best2"
-POSE_LM, GREEDY = "pose_lm", "greedy_select"
+POSE_LM, GREEDY, OBS_INFO = "pose_lm", "greedy_select", "obs_info"
 SOURCES = {MATRIX: "gf_orb_slam2_tpu_torch/csrc/hamming.cu",
            BEST2: "gf_orb_slam2_tpu_torch/csrc/hamming_best2.cu",
            POSE_LM: "gf_orb_slam2_tpu_torch/csrc/pose_lm.cu",
-           GREEDY: "gf_orb_slam2_tpu_torch/csrc/greedy_select.cu"}
+           GREEDY: "gf_orb_slam2_tpu_torch/csrc/greedy_select.cu",
+           OBS_INFO: "gf_orb_slam2_tpu_torch/csrc/obs_info.cu"}
 REPLACES = {MATRIX: "gf_orb_slam2_tpu/ops/pallas_hamming.py:23",
             BEST2: "gf_orb_slam2_tpu/ops/pallas_hamming.py:23",
             POSE_LM: "gf_orb_slam2_tpu/optim/pose_opt.py:81",
-            GREEDY: "gf_orb_slam2_tpu/selection/good_feature.py:32"}
+            GREEDY: "gf_orb_slam2_tpu/selection/good_feature.py:32",
+            OBS_INFO: "gf_orb_slam2_tpu/selection/observability.py:90"}
 PATH_SHAPES = ((4096, 1024), (1024, 1024))  # (local + leftover search), (stereo + motion search)
 CHECK_SHAPES = ((1024, 1024), (4096, 1024), (1000, 777), (1, 1), (0, 5))
 BEST2_CHECK_SHAPES = CHECK_SHAPES + ((5, 1), (5, 0))
@@ -687,7 +694,8 @@ def phase_main_path(imgs, gt, render_s):
     slam = System(headline_config(), device=DEVICE)  # the card: no CPU fallback
     est, frame_ms = [], []
     with Capture(slam) as cap, KeepLast(good_feature, "lazier_greedy_select") as sel, \
-            KeepLast(pose_opt, "pose_optimization", keep=2) as solves:
+            KeepLast(pose_opt, "pose_optimization", keep=2) as solves, \
+            KeepLast(observability, "pose_info_for_selection", keep=OBS_INFO_KEEP) as info:
         hamming_cuda.reset_launch_counts()
         for i, (left, right) in enumerate(imgs):
             if i == N_FRAMES - 1:  # the last frame's tracking calls
@@ -740,6 +748,7 @@ def phase_main_path(imgs, gt, render_s):
         "kernel_launches_mapping": cap.mapper_launches,
         "pose_lm_per_fused_frame": launches[POSE_LM] / max(n_fused, 1),
         "greedy_select_per_fused_frame": launches[GREEDY] / max(n_fused, 1),
+        "obs_info_per_fused_frame": launches[OBS_INFO] / max(n_fused, 1),
         "last_frame_device_kernels": last["device_kernels"],
         "last_frame_device_busy_ms": last["device_busy_ms"],
         "last_frame_ms_profiled": last["ms"],
@@ -790,16 +799,20 @@ def phase_main_path(imgs, gt, render_s):
     if launches[GREEDY] < n_fused:
         fail(f"{GREEDY} launched {launches[GREEDY]} times for {n_fused} fused frames "
              "(< 1 per frame: the local step's budgeted selection)")
+    if launches[OBS_INFO] < n_fused:
+        fail(f"{OBS_INFO} launched {launches[OBS_INFO]} times for {n_fused} fused frames "
+             "(< 1 per frame: the selection's information matrices)")
     if not (np.isfinite(est).all() and est.shape == (N_FRAMES, 3)):
         fail("trajectory is not finite")
     if not ate < ATE_BOUND_M:
         fail(f"ATE {ate!r} m >= {ATE_BOUND_M} m")
     if cap.ba_problem is None:
         fail("no local BA problem was assembled")
-    if len(solves.calls) != 2 or sel.args is None:
+    if len(solves.calls) != 2 or sel.args is None or info.args is None:
         fail("the last frame's two pose solves and its selection were not captured")
     inputs = {"pose": list(zip(("motion_model", "local_map"), solves.calls)),
-              "select": [("main_path_d7", sel.args)]}
+              "select": [("main_path_d7", sel.args)],
+              "info": [(f"main_path_{i}", kept) for i, kept in enumerate(info.calls)]}
     return rec, cap.calls, cap.ba_problem, dict(system=slam, est=est), inputs
 
 
@@ -2118,6 +2131,16 @@ SELECT_OBJ_RTOL = 1e-3  # the selection's logdet where picks differ
 # and the candidate's cost pass (42) of a step; the first cost pass and the
 # final gate (78) once
 POSE_FLOPS_STEP, POSE_FLOPS_ONCE = 302, 78
+# the selection's information matrices: the pool's and the base bit for bit
+# the plain version's (the kernel rounds as cuBLAS and torch's launches do on
+# the card; tests/test_torch_obs_info.py), on the main path's last
+# OBS_INFO_KEEP calls
+OBS_INFO_KEEP = 8
+# float32 operations a row, counted from csrc/obs_info.cu's arithmetic:
+# d and p_c 18, the depth's clamp and inverse 3, the projection derivative
+# 12, -R(q)ᵀ 9, the quaternion derivative 105 and its tangent 84, H 105,
+# the weight 4, (H w)ᵀ H 392; the keypoints' sum 49 a row
+OBS_FLOPS_ROW, OBS_FLOPS_BASE_ROW = 732, 49
 
 
 def logdet_flops(d):
@@ -2313,14 +2336,79 @@ def pose_edge_cases(tensors, cam):
     return out
 
 
-def phase_lm_select(pose_inputs, select_inputs):
+def hold_obs_info(label, kept, gen):
+    """The information-matrix kernel against its plain version on one kept
+    call, bit for bit, a rerun bit for bit, and the greedy selection (kernel
+    3, the same uniforms) on both sets."""
+    a, _ = kept
+    tensors, cam, stereo = [x.contiguous() for x in a[:8]], a[8:11], a[11]
+    pos, valid, kp_pos, kp_valid = tensors[2], tensors[4], tensors[6], tensors[7]
+    obs, base = obs_info_cuda.obs_info(*tensors, *cam, stereo)
+    again = obs_info_cuda.obs_info(*tensors, *cam, stereo)
+    want = observability.pose_info_for_selection_ref(*tensors, *cam, stereo)
+    n_select = min(160, pos.shape[0])
+    gen.manual_seed(16)
+    u = good_feature.lazier_uniforms(obs, n_select, gen, 10)
+    sets = [good_feature.lazier_greedy_select(M, valid, n_select, None, 10, b, uniforms=u)[0]
+            for M, b in ((obs, base), want)]
+    rec = {"case": label, "P": int(pos.shape[0]), "n": int(kp_pos.shape[0]),
+           "rows_weighted": int(want[0].flatten(1).any(1).sum()), "matched": int(kp_valid.sum()),
+           "stereo": bool(stereo),
+           "matrices_differing": int((obs != want[0]).flatten(1).any(1).sum()),
+           "base_equal": bool(torch.equal(base, want[1])),
+           "max_abs_err": float(max((obs - want[0]).abs().max(), (base - want[1]).abs().max())),
+           "rerun_bit_for_bit": bool(torch.equal(obs, again[0]) and torch.equal(base, again[1])),
+           "selection_same": bool(torch.equal(sets[0], sets[1])),
+           "picks_differing": int((sets[0] ^ sets[1]).sum())}
+    rec["ok"] = (rec["matrices_differing"] == 0 and rec["base_equal"]
+                 and rec["rerun_bit_for_bit"] and rec["selection_same"])
+    return rec, tensors, cam, stereo
+
+
+def time_obs_info(tensors, cam, stereo):
+    """Kernel 4 at the path's shapes: device time by CUDA-graph replay, the
+    eager call, the host enqueue of each form; the plain version's ms,
+    device kernels and device-busy ms; the bound."""
+    def kernel():
+        return obs_info_cuda.obs_info(*tensors, *cam, stereo)
+
+    def plain():
+        return observability.pose_info_for_selection_ref(*tensors, *cam, stereo)
+
+    def enqueue_ms(fn):
+        host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(host)
+
+    rec = {"ms": time_cuda_graph(kernel, 20, 10), "call_ms": time_cuda(kernel, 20, 10),
+           "host_ms": enqueue_ms(kernel), "plain_host_ms": enqueue_ms(plain)}
+    prof = profiled(plain, repeats=3)
+    rec.update(plain_ms=prof["ms"], plain_device_kernels=prof["device_kernels"],
+               plain_device_busy_ms=prof["device_busy_ms"])
+    P, n, L = tensors[2].shape[0], tensors[6].shape[0], tensors[5].shape[0]
+    # R, t and the rows read once (pos 12, octave 8, valid 1 a pool row;
+    # 13 a keypoint row; the levels), every row's matrix written once, the
+    # keypoints' read again by the sum, the base written
+    rec.update(bound(48 + 21 * P + 13 * n + 4 * L + 196 * (P + 2 * n + 1),
+                     OBS_FLOPS_ROW * (P + n) + OBS_FLOPS_BASE_ROW * n))
+    return rec
+
+
+def phase_lm_select(pose_inputs, select_inputs, info_inputs):
     """Kernels 2 (`pose_lm`) and 3 (`greedy_select`) on the card against
     their plain PyTorch versions, on the inputs the paths gave them: the
     main path's last motion-model and local-map solves (3 × 8) and the
     accepted relocalization's LM polish (4 × 10), plus the edge cases (R
     and t within POSE_TOL, inliers and n_inliers exact); the
     main path's last selection (D = 7) and the hybrid phase's (D = 13), each
-    on the same uniforms for both, as drawn and exact greedy. Device time by
+    on the same uniforms for both, as drawn and exact greedy. Kernel 4
+    (`obs_info`) against its plain version on the main path's last
+    OBS_INFO_KEEP selections' inputs (bit for bit; the selection on both
+    sets equal). Device time by
     CUDA-graph replay, host ms a call, the plain version's ms and device
     kernels a call, the bound from this run's inputs."""
     pose_cases, pose_shapes = [], []
@@ -2354,14 +2442,25 @@ def phase_lm_select(pose_inputs, select_inputs):
         rec = hold_select(f"cap_p{P}_d{D}_lazier10", M, valid, 160, 10, base, 1e-3, 8, u)
         sel_cases.append(rec)
         sel_shapes.append(dict(rec, **time_select(M, valid, 160, 10, base, 1e-3, 8, u, rec)))
+    info_cases, info_shapes = [], []
+    for label, kept in info_inputs:
+        rec, tensors, cam, stereo = hold_obs_info(label, kept, gen)
+        info_cases.append(rec)
+        if label == info_inputs[-1][0]:  # the last frame's
+            info_shapes.append(dict(rec, case="main_path_last", **time_obs_info(tensors, cam,
+                                                                                  stereo)))
     torch.cuda.synchronize()
     records = {}
     for name, cases, shapes, tol in ((POSE_LM, pose_cases, pose_shapes,
                                       {"R_t_abs": POSE_TOL, "inliers": "exact"}),
                                      (GREEDY, sel_cases, sel_shapes,
-                                      {"tie_gap": SELECT_TIE, "objective_rtol": SELECT_OBJ_RTOL})):
-        # the headline shape: the main path's local-map solve, its D = 7 selection
-        head = next(s for s in shapes if s["case"] in ("local_map", "main_path_d7_lazier10"))
+                                      {"tie_gap": SELECT_TIE, "objective_rtol": SELECT_OBJ_RTOL}),
+                                     (OBS_INFO, info_cases, info_shapes,
+                                      {"matrices": "exact", "selection": "exact"})):
+        # the headline shape: the main path's local-map solve, its D = 7
+        # selection, its last information matrices
+        head = next(s for s in shapes if s["case"] in ("local_map", "main_path_d7_lazier10",
+                                                       "main_path_last"))
         records[name] = {
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "ok": all(c["ok"] for c in cases), "cases": len(cases),
@@ -2370,12 +2469,16 @@ def phase_lm_select(pose_inputs, select_inputs):
             "plain_ms": head["plain_ms"], "plain_device_kernels": head["plain_device_kernels"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shapes": shapes, "checked": cases}
-    emit({"phase": "lm_select", "pose_lm": records[POSE_LM], "greedy_select": records[GREEDY]})
+    records[OBS_INFO].update(plain_host_ms=info_shapes[0]["plain_host_ms"],
+                             selections_equal=sum(c["selection_same"] for c in info_cases))
+    emit({"phase": "lm_select", "pose_lm": records[POSE_LM], "greedy_select": records[GREEDY],
+          "obs_info": records[OBS_INFO]})
     for name, rec in records.items():
         bad = [c for c in rec["checked"] if not c["ok"]]
         if bad:
             fail(f"{name} disagrees with its plain version: {bad}")
-    # no PyTorch call computes a masked Huber LM or a greedy logdet selection
+    # no PyTorch call computes a masked Huber LM, a greedy logdet selection
+    # or the selection's information matrices
     return records
 
 
@@ -2717,7 +2820,7 @@ def main():
     del main
     hybrid, hybrid_select = phase_hybrid(imgs[:HYBRID_FRAMES], gt[:HYBRID_FRAMES], run)
     kernels.update(phase_lm_select(lm_inputs["pose"] + [("reloc_polish", polish)],
-                                   lm_inputs["select"] + [hybrid_select]))
+                                   lm_inputs["select"] + [hybrid_select], lm_inputs["info"]))
     path_calls = phase_path_masks(captured + loop_calls + mono_calls + rgbd_calls + hashing_calls)
     matrix_calls = phase_reloc_matrix(reloc_matrix)
     phase_local_ba(ba_problem)

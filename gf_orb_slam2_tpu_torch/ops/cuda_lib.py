@@ -5,7 +5,7 @@ Every `csrc/*.cu` source is compiled at first use with `nvcc` for sm_90a
 one shared library with a plain C interface under `<package>/_build/`
 (content-hashed name), and loaded with ctypes: importing this module needs
 neither nvcc nor a GPU. The kernels' wrappers (`ops/hamming_cuda.py`,
-`ops/pose_lm_cuda.py`, `ops/greedy_select_cuda.py`) enqueue through
+`ops/pose_lm_cuda.py`, `ops/greedy_select_cuda.py`, `ops/obs_info_cuda.py`) enqueue through
 `launch`, which counts each launch by kernel and by the launching thread's
 name (the pipelined System's workers are the threads named "mapping" and
 "loop") on the port's counters (utils/tracing.py, `launch.<kernel>`); the
@@ -44,9 +44,11 @@ ENTRIES = {
     "empty_kernel_launch": [],
     "pose_lm_launch": [_P] * 7 + [_I] + [_F] * 5 + [_I, _I, _F] + [_P] * 5,
     "greedy_select_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _P, _P],
+    "obs_info_launch": [_P] * 8 + [_I] * 3 + [_F] * 3 + [_I] + [_P] * 2,
 }
 
-KERNELS = ("hamming_distance_matrix", "hamming_masked_best2", "pose_lm", "greedy_select")
+KERNELS = ("hamming_distance_matrix", "hamming_masked_best2", "pose_lm", "greedy_select",
+           "obs_info")
 _load_lock = threading.Lock()
 _lib = None
 

@@ -15,12 +15,18 @@ camera→world rotation. The info-matrix block used for good-feature selection
 is the pose part [p, q] → 7x7 (reference: Tracking.cc:271-274 size choice);
 the hybrid mode (`good_feature.info_mat_size=13`) uses the full 13x13 state
 with a kinematic prior on the velocity block.
+
+`pose_info_for_selection` gives the local step's selection its inputs: CUDA
+tensors launch one hand-written kernel (csrc/obs_info.cu through
+ops/obs_info_cuda.py), CPU tensors run `pose_info_for_selection_ref`, the
+plain composition of the functions below.
 """
 from __future__ import annotations
 
 import torch
 
 from gf_orb_slam2_tpu_torch.geometry import lie
+from gf_orb_slam2_tpu_torch.ops.obs_info_cuda import obs_info
 from gf_orb_slam2_tpu_torch.tracking.kinematics import KineState, predict, process_jacobian
 
 
@@ -95,6 +101,48 @@ def pose_info_from_frame(q, p, pts, fx, fy, bf, stereo_mask, inv_sigma2, valid):
     (reference: the running curMat in runActiveMapMatching)."""
     M = info_matrices(q, p, pts, fx, fy, bf, stereo_mask, inv_sigma2, valid)
     return M.sum(0)
+
+
+def selection_state(R0, t0, pred_octave, scales):
+    """The pose Tcw (R0, t0) as the selection's state — the quaternion of
+    R0ᵀ and the camera centre — and each pool row's inverse level variance
+    1/scale² at its predicted octave, clamped to the pyramid."""
+    R_wc = R0.T
+    q_wc = lie.rot_to_quat(R_wc)
+    center = -(R_wc @ t0)
+    inv2 = 1.0 / scales[torch.clamp(pred_octave, 0, scales.shape[0] - 1)] ** 2
+    return q_wc, center, inv2
+
+
+def pose_info_for_selection(R0, t0, pos, pred_octave, valid, scales, kp_mp_pos,
+                            kp_mp_valid, fx, fy, bf, stereo: bool):
+    """The good-feature selection's inputs at the pose Tcw (R0, t0): the
+    pool's [P,7,7] information matrices (rows `pos` at `pred_octave`, zero
+    where not `valid`) and the [7,7] information of the matched keypoints
+    (`kp_mp_pos` where `kp_mp_valid`, weight 1); `stereo` keeps the u_right
+    rows. CUDA tensors launch the kernel once, then sum the keypoints'
+    matrices with torch: the plain version's bits on the card (float32:
+    anything else raises); CPU tensors run `pose_info_for_selection_ref`."""
+    if pos.is_cuda:
+        return obs_info(*(x.contiguous() for x in (R0, t0, pos, pred_octave, valid, scales,
+                                                    kp_mp_pos, kp_mp_valid)),
+                        fx, fy, bf, stereo)
+    return pose_info_for_selection_ref(R0, t0, pos, pred_octave, valid, scales, kp_mp_pos,
+                                       kp_mp_valid, fx, fy, bf, stereo)
+
+
+def pose_info_for_selection_ref(R0, t0, pos, pred_octave, valid, scales, kp_mp_pos,
+                                kp_mp_valid, fx, fy, bf, stereo: bool):
+    """Plain PyTorch version of `pose_info_for_selection` (any device)."""
+    q_wc, center, inv2 = selection_state(R0, t0, pred_octave, scales)
+    dev = pos.device
+    n = kp_mp_pos.shape[0]
+    obs = info_matrices(q_wc, center, pos, fx, fy, bf,
+                        torch.full((pos.shape[0],), stereo, device=dev), inv2, valid)
+    base = pose_info_from_frame(q_wc, center, kp_mp_pos, fx, fy, bf,
+                                torch.full((n,), stereo, device=dev),
+                                torch.ones(n, dtype=pos.dtype, device=dev), kp_mp_valid)
+    return obs, base
 
 
 def measurement_jacobians_13(q, p, pts, fx, fy, bf, stereo_mask):

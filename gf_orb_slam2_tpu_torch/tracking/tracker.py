@@ -187,9 +187,12 @@ def local_step(
     loc_pos, loc_normal, loc_mind, loc_maxd, loc_desc, loc_valid,
     loc_life, loc_already,
     kp_uv, kp_oct, kp_ur, kp_valid, kp_desc,
-    kp_mp_pos, kp_mp_valid, extra_radius, generator=None,
+    kp_mp_pos, kp_mp_valid, extra_radius, generator=None, plain_selection_inputs=False,
 ):
-    """Local-map step. Returns (res, kp_row, kp_row_add, new_valid, n_visible)."""
+    """Local-map step. Returns (res, kp_row, kp_row_add, new_valid, n_visible).
+    `plain_selection_inputs` builds the good-feature selection's matrices
+    with the plain PyTorch chain even on the card (the pipelined driver's
+    stream step: `stream_step`)."""
     cam = cfg.camera
     fx, fy, cx, cy, bf = cam.fx, cam.fy, cam.cx, cam.cy, cam.bf
     n_levels = scales.shape[0]
@@ -209,29 +212,28 @@ def local_step(
                 # GOOD FEATURE branch (reference: Tracking.cc:2348-2377 →
                 # Observability::runActiveMapMatching): restrict the search
                 # to the Max-logDet subset when the pool is large.
-                R_wc = R0.T
-                q_wc = lie.rot_to_quat(R_wc)
-                center = -(R_wc @ t0)
-                inv2_pt = 1.0 / scales[torch.clamp(proj.pred_octave, 0, n_levels - 1)] ** 2
                 is_stereo_sensor = cfg.sensor != Sensor.MONOCULAR
-                dev = loc_pos.device
-                stereo_mask = torch.full((loc_pos.shape[0],), is_stereo_sensor, device=dev)
-                n = kp_mp_pos.shape[0]
-                kp_stereo = torch.full((n,), is_stereo_sensor, device=dev)
-                ones = torch.ones(n, dtype=loc_pos.dtype, device=dev)
                 if gf_cfg.info_mat_size == 13:
                     # hybrid full-state mode (reference: Tracking.cc:271-274
                     # USE_HYBRID_INFO_MATRIX → 13x13 over [p,q,v,ω])
+                    q_wc, center, inv2_pt = observability.selection_state(
+                        R0, t0, proj.pred_octave, scales)
+                    dev = loc_pos.device
+                    stereo_mask = torch.full((loc_pos.shape[0],), is_stereo_sensor, device=dev)
+                    n = kp_mp_pos.shape[0]
+                    kp_stereo = torch.full((n,), is_stereo_sensor, device=dev)
+                    ones = torch.ones(n, dtype=loc_pos.dtype, device=dev)
                     obs_mats = observability.info_matrices_13(
                         q_wc, center, loc_pos, fx, fy, bf, stereo_mask, inv2_pt, pool)
                     base = observability.info_matrices_13(
                         q_wc, center, kp_mp_pos, fx, fy, bf, kp_stereo, ones,
                         kp_mp_valid, kine_prior=0.0).sum(0)
                 else:
-                    obs_mats = observability.info_matrices(
-                        q_wc, center, loc_pos, fx, fy, bf, stereo_mask, inv2_pt, pool)
-                    base = observability.pose_info_from_frame(
-                        q_wc, center, kp_mp_pos, fx, fy, bf, kp_stereo, ones, kp_mp_valid)
+                    info = (observability.pose_info_for_selection_ref if plain_selection_inputs
+                            else observability.pose_info_for_selection)
+                    obs_mats, base = info(
+                        R0, t0, loc_pos, proj.pred_octave, pool, scales,
+                        kp_mp_pos, kp_mp_valid, fx, fy, bf, is_stereo_sensor)
                 sel, _ = good_feature.lazier_greedy_select(
                     obs_mats, pool, gf_cfg.constr_per_frame, generator,
                     lazier_factor=gf_cfg.lazier_factor, base_mat=base)
@@ -304,7 +306,7 @@ def fused_track(
     pt_pos, pt_oct, pt_valid, pt_desc,
     loc_pos, loc_normal, loc_mind, loc_maxd, loc_desc, loc_valid, loc_life,
     kp_uv, kp_oct, kp_ur, kp_valid, kp_desc, radius, extra_radius,
-    generator=None,
+    generator=None, plain_selection_inputs=False,
 ):
     """Motion-model step + local-map step chained without a host visit.
 
@@ -325,7 +327,7 @@ def fused_track(
         loc_pos, loc_normal, loc_mind, loc_maxd, loc_desc, loc_valid,
         loc_life, loc_already,
         kp_uv, kp_oct, kp_ur, kp_valid, kp_desc,
-        kp_mp_pos, kp_mp_valid, extra_radius, generator,
+        kp_mp_pos, kp_mp_valid, extra_radius, generator, plain_selection_inputs,
     )
     return res_m, kp_row_m, res_l, kp_row_l, kp_row_add, n_vis
 
@@ -434,6 +436,10 @@ def stream_step(cfg: SystemConfig, scales, upload, frontend_out, chain, mirror,
         upload["loc_life"],
         f["uv"], f["octave"], f["u_right"], f["valid"], f["desc"],
         _search_radius(cfg), 1.0, generator,
+        # the plain chain, not kernel 4: with frames in flight this driver's
+        # pace is not its enqueue, and the kernel's faster enqueue left the
+        # mapping worker further behind the stream (PERF.md §6, §7 10)
+        plain_selection_inputs=True,
     )
     # association combine (the host _track_fused's, on the device)
     ids_m = torch.where((kp_row_m >= 0) & res_m.inliers,

@@ -22,7 +22,9 @@ the always-on records (`LocalMapper.event_ms`, `LoopCloser.event_ms`,
 children's nanoseconds by name. `entry(name, **attrs)` is the span of a
 public entry: it also stores the calling thread's counter deltas over the
 call (`uploads`, `upload_bytes`, `syncs`, `download_bytes`, `graph_replays`,
-`launches`, and the hashed local map's `hash_candidates` and `hash_added`).
+`launches`, of which `obs_info_launches` are the selection's
+information-matrix kernel's, and the hashed local map's `hash_candidates`
+and `hash_added`).
 `set(**attrs)` adds attributes known only at a span's end (off, it does
 nothing).
 
@@ -267,6 +269,7 @@ def clear():
 _DELTAS = (("uploads", "h2d.copies"), ("upload_bytes", "h2d.bytes"),
            ("syncs", "d2h.syncs"), ("download_bytes", "d2h.bytes"),
            ("graph_replays", "frontend.graph_replays"),
+           ("obs_info_launches", "launch.obs_info"),
            ("hash_candidates", "hash.candidates"), ("hash_added", "hash.added"))
 
 

@@ -142,7 +142,8 @@ def test_cpu_path_never_counts_a_launch():
     # one counter for every kernel of the port (ops/cuda_lib.py)
     assert hamming_cuda.launch_counts == {"hamming_distance_matrix": 0,
                                           "hamming_masked_best2": 0,
-                                          "pose_lm": 0, "greedy_select": 0}
+                                          "pose_lm": 0, "greedy_select": 0,
+                                          "obs_info": 0}
 
 
 # ---- the fused form: best two matches per row without the matrix

@@ -228,7 +228,8 @@ def test_transfer_counters():
 
 
 def test_launch_counts_keep_their_names(monkeypatch):
-    names = ["hamming_distance_matrix", "hamming_masked_best2", "pose_lm", "greedy_select"]
+    names = ["hamming_distance_matrix", "hamming_masked_best2", "pose_lm", "greedy_select",
+             "obs_info"]
     assert hamming_cuda.launch_counts is cuda_lib.launch_counts
     assert hamming_cuda.reset_launch_counts is cuda_lib.reset_launch_counts
     cuda_lib.reset_launch_counts()
@@ -259,6 +260,36 @@ def test_launch_counts_keep_their_names(monkeypatch):
     cuda_lib.reset_launch_counts()
     assert cuda_lib.launch_counts == dict.fromkeys(names, 0)
     assert cuda_lib.thread_launch_counts(MAPPING_THREAD)["pose_lm"] == 0
+
+
+def test_frame_spans_count_the_selection_kernels_launches(monkeypatch):
+    """A `frame` span's `obs_info_launches` delta counts the launches of the
+    selection's information-matrix kernel inside it, apart from the other
+    kernels' (`launches` counts them all; a stand-in library and stream)."""
+    class Lib:
+        def obs_info_launch(self, *args):
+            return 0
+
+        def pose_lm_launch(self, *args):
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(cuda_lib, "load", Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    tracing.enable()
+    with tracing.entry("frame", frame=0):
+        cuda_lib.launch("obs_info", "obs_info_launch", "cuda")
+        cuda_lib.launch("pose_lm", "pose_lm_launch", "cuda")
+    with tracing.entry("frame", frame=1):
+        cuda_lib.launch("pose_lm", "pose_lm_launch", "cuda")
+    tracing.disable()
+    frames = [s for s in tracing.spans() if s.name == "frame"]
+    assert [(f.attrs["obs_info_launches"], f.attrs["launches"]) for f in frames] == [(1, 2),
+                                                                                      (0, 1)]
+    cuda_lib.reset_launch_counts()
 
 
 # ------------------------------------------------------- a short System run
@@ -311,6 +342,7 @@ def test_frame_spans_count_one_sync_a_fused_frame(traced_rgbd):
     for e, path in zip(entries, paths):
         if path == "fused":
             assert e.attrs["syncs"] == 1 and e.attrs["launches"] == 0
+            assert e.attrs["obs_info_launches"] == 0
             # the frame's packed upload, the pool's and the step's own arrays
             assert e.attrs["uploads"] == 10
         assert e.attrs["upload_bytes"] >= padded(im.astype(np.uint8), depth.astype(np.float32))

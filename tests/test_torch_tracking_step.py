@@ -548,14 +548,27 @@ def test_process_frame_parity_on_carried_map(carried):
     assert tr.store.n_keyframes == js.store.n_keyframes
 
 
-def test_fused_step_good_feature_branch(carried):
+def _selection_inputs_taken(monkeypatch):
+    """Which of observability's functions for the selection's matrices the
+    step calls: the dispatch (kernel 4 on the card) or the plain chain."""
+    taken = []
+    for name in ("pose_info_for_selection", "pose_info_for_selection_ref"):
+        real = getattr(tobs, name)
+        monkeypatch.setattr(tobs, name, lambda *a, _n=name, _f=real: taken.append(_n) or _f(*a))
+    return taken
+
+
+def test_fused_step_good_feature_branch(carried, monkeypatch):
     """The fused step with Max-logDet selection on (lazier_factor=10, the
     headline setting) on the carried-over map. The motion stage is exact.
     What follows the selection is held statistically — picks can swap at f32
     near-ties and the sampling streams differ by design (threefry vs torch):
     same visibility count, the budget is respected, local/leftover match
-    counts within 15 %, inlier counts within 5 %, same pose to 2e-3."""
+    counts within 15 %, inlier counts within 5 %, same pose to 2e-3. Its
+    selection's matrices come through the dispatch (kernel 4 on the card)."""
     from gf_orb_slam2_tpu.tracking.tracker import Tracker as JTracker
+
+    taken = _selection_inputs_taken(monkeypatch)
 
     u, front = carried["inputs"], carried["front"]
     uv, octv, ang, desc, resp, val, ur, dep = front
@@ -587,6 +600,8 @@ def test_fused_step_good_feature_branch(carried):
     assert abs(i_g - i_w) <= 0.05 * i_w + 2
     np.testing.assert_allclose(g_res_l.R.numpy(), np.asarray(w_res_l.R), atol=2e-3)
     np.testing.assert_allclose(g_res_l.t.numpy(), np.asarray(w_res_l.t), atol=2e-3)
+    # the dispatch, which on CPU tensors runs the plain chain in turn
+    assert taken == ["pose_info_for_selection", "pose_info_for_selection_ref"]
 
 
 # ------------------------------------------ streaming step on the carried map
@@ -659,13 +674,16 @@ def test_stream_step_parity_on_carried_map(carried):
     np.testing.assert_array_equal(g_next["R2"], w_next["R2"])
 
 
-def test_stream_step_good_feature_branch(carried):
+def test_stream_step_good_feature_branch(carried, monkeypatch):
     """Max-logDet selection on (lazier_factor=10), held as
     test_fused_step_good_feature_branch holds the fused step: the motion
     stage exact, the same visibility count, the budget respected, local and
     leftover match counts within 15 %, inliers within 5 %, pose to 2e-3; the
-    chain is consistent with the combined ids."""
+    chain is consistent with the combined ids. Its selection's matrices come
+    from the plain chain, not kernel 4 (tracking/tracker.py `stream_step`)."""
     from gf_orb_slam2_tpu.tracking.tracker import Tracker as JTracker
+
+    taken = _selection_inputs_taken(monkeypatch)
 
     js = carried["js"]
     jcfg = carried["jcfg"].replace(good_feature=jconfig.GoodFeatureConfig(
@@ -691,5 +709,6 @@ def test_stream_step_good_feature_branch(carried):
     np.testing.assert_array_equal(g_next["pt_valid"], ids >= 0)
     live = ids[ids >= 0]
     assert live.size == np.unique(live).size
+    assert taken == ["pose_info_for_selection_ref"]
     np.testing.assert_array_equal(g_next["R2"], chain_in["R1"].numpy())
     np.testing.assert_array_equal(g_next["t2"], chain_in["t1"].numpy())

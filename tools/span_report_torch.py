@@ -30,7 +30,11 @@ result line, and writes a JSON report over the traced part of the window
   queries and their attributes (descriptors queried, candidates the tables
   returned, pool points only the hash gave, the candidate budget) a frame,
   `track.hash` / `track.hash_scores` ms a frame, and the mapping worker's
-  `map.hash` events (count, mean ms, points inserted, entries evicted).
+  `map.hash` events (count, mean ms, points inserted, entries evicted);
+- `select`: the frames with a `track.select` span (the local step's
+  budgeted selection), its ms a frame, and the launches of the selection's
+  information-matrix kernel a frame (`launch.obs_info`, the `frame` span's
+  `obs_info_launches` delta) and the frames with one.
 
 `--trace 0` runs the cell without the profiler, with the spans on through
 `tracing.enable()` for the whole run, and reports the window's frames span
@@ -108,6 +112,26 @@ def hash_summary(spans, frames, t0, t1):
             inserted=sum(e.attrs.get("inserted", 0) for e in events),
             evicted=sum(e.attrs.get("evicted", 0) for e in events))
     return out
+
+
+def select_summary(spans, frames):
+    """The local step's selection over the frames: `track.select` ms, and
+    the `obs_info` launches each `frame` span counted; None where no frame
+    selected."""
+    from slambench.core import program
+
+    selects = program.inside(frames, spans, "track.select")
+    if not selects:
+        return None
+    starts = sorted(f.start_ns for f in frames)
+    selecting = {starts[max(0, bisect.bisect_right(starts, x.start_ns) - 1)] for x in selects}
+    n = len(frames)
+    launched = [f.attrs.get("obs_info_launches", 0) for f in frames]
+    return {"frames": n, "frames_with_select": len(selecting),
+            "frames_with_obs_info": sum(k > 0 for k in launched),
+            "selects_per_frame": len(selects) / n,
+            "track_select_ms_per_frame": sum(x.end_ns - x.start_ns for x in selects) / 1e6 / n,
+            "obs_info_per_frame": sum(launched) / n}
 
 
 def match_ranges(mine, ranges, inside_only=False):
@@ -263,6 +287,7 @@ def main(argv=None):
         "graph_counters": {k: v for k, v in sorted(tracing.counters().items())
                            if k.startswith("frontend.graph")},
         "hash": hash_summary(spans, frames, t0, t1),
+        "select": select_summary(spans, frames),
     })
     if t is not None:
         steps = program.inside(frames, spans, "track.step")
@@ -285,7 +310,7 @@ def main(argv=None):
         json.dump(report, f, indent=1)
     print(json.dumps({k: report.get(k) for k in (
         "frames_spanned", "latency", "self_share", "frame_counters", "graph_counters", "hash",
-        "checks", "idle_by_span", "span_cost")}),
+        "select", "checks", "idle_by_span", "span_cost")}),
         flush=True)
     return 0 if result["correct"] and not loaded else 1
 
